@@ -11,15 +11,20 @@ Phases (each prints its own lines; any failure exits non-zero):
      and the build of the banded substitution kernel from
      dedalus_tpu_torch/csrc/banded_subst.cu (nvcc, sm_90a).
   2. Kernel vs its plain PyTorch version on the card, at the RB 2048x1024
-     shapes (random operators from a seed) in f64 and f32: max relative
-     error against a stated bound, median times of both, the byte bound.
+     shapes (random operators from a seed) in f64 and f32, and in the
+     factor-time Woodbury form (16 right-hand sides per group, f64): max
+     relative error against a stated bound, median times of both (warm,
+     and cold: each launch after a 64 MB write that flushes the 50 MB L2),
+     one torch.sum over the same operator bytes as a read-bandwidth
+     yardstick of the card, the byte bound.
   3. The main path: build_rb_solver(256, 64, float64, matsolver="banded")
      on cuda through the public API, 50 RK222 steps. Checks: finite state,
      boundary conditions, the incompressibility equation, an RB 8x32 run
      on the card against the same run on the CPU, and the kernel's launch
-     count (factorizations + stage solves x (1 + refinement sweeps), per
-     G-chunk). Then the kernel vs plain check at the solver's own factor
-     operators (f64 and f32), and a per-layer time breakdown of one stage.
+     count (factorizations + stage solves x (1 + refinement sweeps),
+     whatever the factor's G-chunk count). Then the kernel vs plain check
+     at the solver's own factor operators (f64 and f32), and a per-layer
+     time breakdown of one stage.
   4. Real size: RB 2048x1024 (the target of BASELINE.json): build,
      factor, 10 steps, steps/s, peak device memory, the same checks.
   5. The kernels line, the card line, and the result line.
@@ -44,6 +49,8 @@ PEAK_FLOPS = {"float64": 34e12, "float32": 67e12}
 # kernel vs plain: relative to max|plain| (summation order differs; f32
 # against f64 on the RB 256x64 factor operators differs by ~5e-7)
 BOUND = {"float64": 1e-12, "float32": 1e-5}
+# bytes written between cold launches: more than the H100's 50 MB L2
+FLUSH_BYTES = 64 * 2 ** 20
 RESULTS = {}
 
 
@@ -63,6 +70,26 @@ def median_ms(fn, reps=25, warm=3):
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return statistics.median(times)
+
+
+def cold_median_ms(fn, reps=10):
+    """Median device time of fn, each run right after a write of
+    FLUSH_BYTES of scratch, so the L2 holds none of fn's inputs."""
+    import torch
+    scratch = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32,
+                          device="cuda")
+    fn()
+    times = []
+    for rep in range(reps):
+        scratch.fill_(float(rep))
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
@@ -105,27 +132,40 @@ def check_kernel(label, fsub, fp):
     if not rel_err <= BOUND[dtype]:
         fail(f"kernel[{label}] disagrees with the plain version: max "
              f"relative error {rel_err:.3e} > {BOUND[dtype]:.0e}")
-    ms = median_ms(lambda: fusedstep.substitution_cuda(fsub, fp))
+    launch = lambda: fusedstep.substitution_cuda(fsub, fp)
+    ms = median_ms(launch)
+    cold_ms = cold_median_ms(launch)
     plain_ms = median_ms(lambda: fusedstep.substitution_plain(fsub, fp))
+    # the read-bandwidth yardstick: one torch.sum over a flat copy of the
+    # operator bytes (timed here only; the port never calls it)
+    flat = torch.cat([fsub[k].reshape(-1)
+                      for k in ("FwdOp", "BwdOp", "lastOp")])
+    stream_ms = median_ms(lambda: torch.sum(flat))
+    del flat
     nbytes, flops = subst_cost(fsub, fp)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    rec = {"shape": label, "dtype": dtype,
-           "G": fsub["lastOp"].shape[0], "q": fsub["lastOp"].shape[-1],
-           "NB": fsub["FwdOp"].shape[0] + 1,
+    G, q = fsub["lastOp"].shape[:2]
+    NB = fsub["FwdOp"].shape[0] + 1
+    k = 1 if fp.ndim == 2 else fp.shape[1]
+    rec = {"shape": label, "dtype": dtype, "G": G, "q": q, "NB": NB, "k": k,
            "max_abs_err": abs_err, "max_rel_err": rel_err,
-           "bound_rel": BOUND[dtype], "ms": ms, "plain_ms": plain_ms,
+           "bound_rel": BOUND[dtype], "ms": ms, "cold_ms": cold_ms,
+           "stream_ms": stream_ms, "plain_ms": plain_ms,
            "bytes": nbytes, "flops": flops,
            "bound_ms": max(t_bytes, t_ops),
-           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "plan": fusedstep.kernel_plan(G, k, NB, q, fp.dtype)}
+    rec["share_of_bound"] = rec["bound_ms"] / ms
     log(f"kernel[{label},{dtype}] " + json.dumps(rec))
     RESULTS.setdefault("kernel_checks", []).append(rec)
     return rec
 
 
-def random_fsub(G, NB, q, dtype, seed):
+def random_fsub(G, NB, q, dtype, seed, k=1):
     """Random substitution operators on the card, scaled so the sweeps
-    neither grow nor decay fast."""
+    neither grow nor decay fast, and a right-hand side of k columns per
+    group."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(seed)
 
@@ -136,7 +176,8 @@ def random_fsub(G, NB, q, dtype, seed):
     fsub = {"FwdOp": rnd((NB - 1, G, 4 * q * q), 2 * q),
             "BwdOp": rnd((NB - 1, G, 3 * q * q), 3 * q),
             "lastOp": rnd((G, q, q), q)}
-    fp = torch.randn((G, NB * q), generator=gen, device="cuda",
+    shape = (G, NB * q) if k == 1 else (G, k, NB * q)
+    fp = torch.randn(shape, generator=gen, device="cuda",
                      dtype=torch.float64).to(dtype)
     return fsub, fp
 
@@ -185,16 +226,15 @@ def breakdown(label, solver, dt, reps):
     ops, X = solver.ops, solver.X
     M, L = solver.M_mat, solver.L_mat
     aux = solver.timestepper._lhs_aux[0]
-    core = aux["chunks"][0]
-    fp = X.new_ones((core["fsub"]["lastOp"].shape[0], ops.n_pad))
+    fp = X.new_ones((X.shape[0], ops.n_pad))
     layout, variables = solver.layout, solver.variables
     out = {
         "rhs_eval": median_ms(lambda: solver.eval_F(X, 0.0), reps=reps),
         "matvec_L": median_ms(lambda: ops.matvec(L, X), reps=reps),
         "solve_with_refinement": median_ms(
             lambda: ops.solve(aux, X, mats=(M, L)), reps=reps),
-        "substitution_kernel_one_chunk": median_ms(
-            lambda: fusedstep.substitution_cuda(core["fsub"], fp), reps=reps),
+        "substitution_kernel": median_ms(
+            lambda: fusedstep.substitution_cuda(aux["fsub"], fp), reps=reps),
         "scatter_gather": median_ms(lambda: gather_state(
             layout, variables, scatter_state(layout, variables, X)),
             reps=reps),
@@ -210,10 +250,11 @@ def breakdown(label, solver, dt, reps):
 
 
 def expected_launches(solver, steps, factorizations):
+    """One launch per factorization (the Woodbury solve) and one per
+    solve, whatever the factor's G-chunk count; also returns that count."""
     ts = solver.timestepper
-    chunks = len(ts._lhs_aux[0]["chunks"])
     solves = steps * ts.stages * (1 + solver.ops.sweeps)
-    return (factorizations + solves) * chunks, chunks
+    return factorizations + solves, ts._lhs_aux[0]["factor_chunks"]
 
 
 def main():
@@ -247,13 +288,17 @@ def main():
     fusedstep.load_kernel_library()
     RESULTS["kernel_build_s"] = time.perf_counter() - t0
     log(f"kernel build: {RESULTS['kernel_build_s']:.2f} s")
+    RESULTS["ptxas"] = fusedstep.ptxas_report()
+    log(RESULTS["ptxas"])
     torch.backends.cuda.matmul.allow_tf32 = False
 
     # ---------------------------------------------------------- phase 2
     Gr, NBr, qr = 1024, 257, 32       # RB 2048x1024: G = Nx/2, NB, q
-    for dtype, seed in ((torch.float64, 1), (torch.float32, 2)):
-        fsub, fp = random_fsub(Gr, NBr, qr, dtype, seed)
-        check_kernel("rb2048x1024-random", fsub, fp)
+    for dtype, seed, k in ((torch.float64, 1, 1), (torch.float32, 2, 1),
+                           (torch.float64, 4, 16)):
+        fsub, fp = random_fsub(Gr, NBr, qr, dtype, seed, k)
+        check_kernel("rb2048x1024-random" + ("-woodbury" if k > 1 else ""),
+                     fsub, fp)
         del fsub, fp
     torch.cuda.empty_cache()
 
@@ -309,7 +354,7 @@ def main():
 
     # the kernel at the main path's own shapes and factor operators
     aux = solver.timestepper._lhs_aux[0]
-    fsub64 = aux["chunks"][0]["fsub"]
+    fsub64 = aux["fsub"]
     fsub64 = {k: fsub64[k] for k in ("FwdOp", "BwdOp", "lastOp")}
     G, q = fsub64["lastOp"].shape[:2]
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -365,9 +410,11 @@ def main():
     # ---------------------------------------------------------- phase 5
     # times and bound at the main path's own shapes (f64); the errors are
     # the worst over every kernel-vs-plain check (f32 ones included), each
-    # also listed with its relative bound
-    checks = [{k: rec[k] for k in ("shape", "dtype", "max_abs_err",
-                                   "max_rel_err", "bound_rel")}
+    # also listed with its relative bound, times and byte bound
+    checks = [{k: rec[k] for k in ("shape", "dtype", "k", "max_abs_err",
+                                   "max_rel_err", "bound_rel", "ms",
+                                   "cold_ms", "stream_ms", "plain_ms",
+                                   "bound_ms", "share_of_bound")}
               for rec in RESULTS["kernel_checks"]]
     kernels = {"kernels": [{
         "name": "banded_subst", "route": "cuda",
@@ -376,7 +423,9 @@ def main():
         "launches": launches["banded_subst"],
         "max_abs_err": max(c["max_abs_err"] for c in checks),
         "max_rel_err": max(c["max_rel_err"] for c in checks),
-        "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],
+        "launches_real_size": real["launches"],
+        "ms": main_rec["ms"], "cold_ms": main_rec["cold_ms"],
+        "stream_ms": main_rec["stream_ms"], "plain_ms": main_rec["plain_ms"],
         "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
         "library_ms": None, "checks": checks}]}
     RESULTS["kernels"] = kernels["kernels"]

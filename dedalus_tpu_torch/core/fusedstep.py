@@ -31,7 +31,8 @@ import threading
 import torch
 
 __all__ = ["banded_substitution", "substitution_plain", "substitution_cuda",
-           "LAUNCHES", "KERNEL_SOURCE", "build_dir", "load_kernel_library"]
+           "LAUNCHES", "KERNEL_SOURCE", "build_dir", "load_kernel_library",
+           "ptxas_report", "kernel_plan"]
 
 
 # --------------------------------------------------------- the substitution
@@ -42,7 +43,7 @@ LAUNCHES = {"banded_subst": 0}
 KERNEL_SOURCE = pathlib.Path(__file__).resolve().parent.parent \
     / "csrc" / "banded_subst.cu"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 MAX_Q = 64
 
 _LIB = None
@@ -83,7 +84,8 @@ def load_kernel_library():
     """Build csrc/banded_subst.cu with nvcc for sm_90a into `build_dir()`
     (a shared library with a plain C interface, keyed by `build_tag`) and
     load it with ctypes. Returns the loaded library; raises on a failed
-    build."""
+    build. The compiler's register and shared-memory report (ptxas -v)
+    is kept beside the library (`ptxas_report`)."""
     global _LIB
     with _LIB_LOCK:
         if _LIB is not None:
@@ -105,6 +107,7 @@ def load_kernel_library():
                 raise RuntimeError(
                     f"nvcc failed building {KERNEL_SOURCE.name}:\n"
                     f"{proc.stdout}\n{proc.stderr}")
+            target.with_suffix(".ptxas.txt").write_text(proc.stderr)
             os.replace(tmp, target)
         lib = ctypes.CDLL(str(target))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
@@ -112,8 +115,37 @@ def load_kernel_library():
             fn = getattr(lib, name)
             fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
             fn.restype = i32
+        lib.banded_subst_plan.argtypes = [i32, i32, i32, i32, i32, ptr]
+        lib.banded_subst_plan.restype = i32
+        lib.path = target
         _LIB = lib
         return lib
+
+
+def ptxas_report():
+    """The ptxas -v lines of the built kernel library (registers, shared
+    memory and spills of each instantiation)."""
+    path = load_kernel_library().path.with_suffix(".ptxas.txt")
+    return path.read_text() if path.exists() else ""
+
+
+PLAN_KEYS = ("column_tile", "columns_per_block", "blocks_per_group",
+             "blocks_per_sm", "stages", "panel_bytes", "smem_bytes",
+             "y_in_smem", "split_rows")
+
+
+def kernel_plan(G, k, NB, q, dtype):
+    """The launch shape the kernel takes for a solve of G groups, k
+    columns, NB block rows of width q in `dtype` on the current CUDA
+    device: {PLAN_KEYS: int}. Raises where the kernel would refuse the
+    shape."""
+    lib = load_kernel_library()
+    plan = (ctypes.c_int * len(PLAN_KEYS))()
+    item = torch.empty((), dtype=dtype).element_size()
+    err = lib.banded_subst_plan(G, k, NB, q, item, plan)
+    if err != 0:
+        raise RuntimeError(f"banded_subst plan refused: CUDA error {err}")
+    return dict(zip(PLAN_KEYS, plan))
 
 
 def _as_columns(fp):
@@ -160,8 +192,9 @@ def substitution_plain(fsub, fp):
 
 def substitution_cuda(fsub, fp):
     """Launch the banded substitution kernel (csrc/banded_subst.cu) on
-    CUDA tensors: one thread block per (pencil group, right-hand side),
-    on the current stream. Raises on a tensor it does not take or a
+    CUDA tensors: one thread block per pencil group (and per 16
+    right-hand sides), on the current stream. The kernel sizes its
+    shared-memory ring itself. Raises on a tensor it does not take or a
     launch error code."""
     fwd, bwd, last = fsub["FwdOp"], fsub["BwdOp"], fsub["lastOp"]
     f = _as_columns(fp)

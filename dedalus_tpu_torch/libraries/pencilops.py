@@ -277,114 +277,111 @@ class BandedOps:
     def _pick_chunks(self, G, itemsize):
         """(C, Gc): chunk count and width for the G-chunked factorization,
         keeping a chunk's factor slab (panelLU + U12) under BANDED_CHUNK_MB.
-        When C*Gc > G the batch is edge-padded with copies of the last
-        group — factoring a duplicate is well-conditioned and its results
-        are trimmed."""
+        Chunk i factors groups [i*Gc, min(G, (i+1)*Gc)); the last chunk
+        may be narrower."""
         target = float(config["linear algebra"]["BANDED_CHUNK_MB"]) * 1e6
         per_g = self.NB * (2 * self.q * self.q) * 2 * itemsize
         Gc = int(max(1, min(G, target // max(per_g, 1))))
         C = -(-G // Gc)
         if C <= 1:
             return 1, G
-        Gc = -(-G // C)  # rebalance: padding stays below one chunk width
+        Gc = -(-G // C)  # rebalance: the last chunk is at most Gc narrower
         return C, Gc
 
-    @staticmethod
-    def _pad_groups(arr, G_pad):
-        """Edge-pad the leading (group) axis to G_pad."""
-        pad = G_pad - arr.shape[0]
-        if pad <= 0:
-            return arr
-        return torch.cat([arr, arr[-1:].expand((pad,) + arr.shape[1:])])
-
-    def _factor_core(self, bands, Vt):
+    def _factor_bands(self, bands):
         """Factor one full-lattice band slab (any leading batch size) into
-        the precomposed substitution operators plus the Woodbury pieces:
-        {"fsub", "Vt", "YbT"} with fsub also holding CapInv."""
-        G = bands.shape[0]
-        dtype = bands.dtype
+        the precomposed substitution operators {FwdOp, BwdOp, lastOp}."""
         # identity pins at the pinned rows + padded diagonal
         bands[:, self.kl, self._pin_pos_t] = 1.0
         if self.n_pad > self.n:
             bands[:, self.kl, self.n:] = 1.0
-        fsub = self._precompose_subst(self._factor_interior(bands))
-        core = {"fsub": fsub, "Vt": Vt}
-        if self.t:
-            # Y = B~^-1 E  (E = one-hot columns at the pin positions),
-            # solved as t right-hand sides and kept transposed (G, t, n_pad)
-            E = torch.zeros((G, self.t, self.n_pad), dtype=dtype,
-                            device=bands.device)
-            E[:, torch.arange(self.t, device=bands.device),
-              self._pin_pos_t] = 1.0
-            YbT = banded_substitution(fsub, E)
-            # capacitance: I + (Vt - E^T) Y
-            Cap = (torch.eye(self.t, dtype=dtype, device=bands.device)
-                   + Vt @ YbT.transpose(1, 2)
-                   - YbT[:, :, self._pin_pos_t].transpose(1, 2))
-            # the t x t capacitance solve becomes one GEMM
-            fsub["CapInv"] = torch.linalg.inv(Cap)
-            core["YbT"] = YbT
-        return core
+        return self._precompose_subst(self._factor_interior(bands))
 
-    def _combine_ml(self, mb, lb, mv, lv, g, a, b, dM, dL):
-        """a*M + b*L as a full-lattice (bands, Vt) pair from trimmed
-        slabs of g groups."""
-        dtype, device = mb.dtype, mb.device
-        bands = torch.zeros((g, self.nd, self.n_pad), dtype=dtype,
-                            device=device)
+    def _woodbury(self, fsub, Vt):
+        """The Woodbury pieces over the whole store: YbT = (B~^-1 E)^T,
+        solved as t right-hand sides per group in one substitution, and
+        the t x t capacitance inverse, put in fsub["CapInv"]."""
+        G, dtype, device = Vt.shape[0], Vt.dtype, Vt.device
+        # E = one-hot columns at the pin positions, kept transposed
+        # (G, t, n_pad) like Y
+        E = torch.zeros((G, self.t, self.n_pad), dtype=dtype, device=device)
+        E[:, torch.arange(self.t, device=device), self._pin_pos_t] = 1.0
+        YbT = banded_substitution(fsub, E)
+        # capacitance: I + (Vt - E^T) Y
+        Cap = (torch.eye(self.t, dtype=dtype, device=device)
+               + Vt @ YbT.transpose(1, 2)
+               - YbT[:, :, self._pin_pos_t].transpose(1, 2))
+        # the t x t capacitance solve becomes one GEMM
+        fsub["CapInv"] = torch.linalg.inv(Cap)
+        return YbT
+
+    def _combine_bands(self, mb, lb, a, b, dM, dL):
+        """a*M + b*L as a full-lattice band slab from trimmed slabs."""
+        bands = torch.zeros((mb.shape[0], self.nd, self.n_pad),
+                            dtype=mb.dtype, device=mb.device)
         bands[:, dM] += a * mb
         bands[:, dL] += b * lb
-        Vt = torch.zeros((g, self.t, self.n_pad), dtype=dtype, device=device)
-        if mv is not None:
-            Vt += a * mv
-        if lv is not None:
-            Vt += b * lv
-        return bands, Vt
+        return bands
 
     def factor_lincomb(self, a, M, b, L):
         """Factor a*M + b*L without persisting the combined bands: the
-        combination is a transient of the factorization, built per G-chunk,
-        and the refinement residual uses matvecs of the resident M and L.
-        Returns the aux: {"chunks": [core, ...], "Gc", "ab"}."""
+        combination is a transient of the factorization, built per G-chunk
+        (`_pick_chunks`), and the refinement residual uses matvecs of the
+        resident M and L. Each chunk's operators are written into its
+        slice of one store over all G groups, so a solve is one
+        substitution whatever the chunk count; the Woodbury solve runs
+        once over the store. Returns the aux: {"fsub", "Vt", "YbT",
+        "factor_chunks", "ab"}."""
         G = M.bands.shape[0]
         C, Gc = self._pick_chunks(G, M.bands.element_size())
         dM = torch.as_tensor(M.dsel, device=self.device)
         dL = torch.as_tensor(L.dsel, device=self.device)
-        padded = [None if arr is None else self._pad_groups(arr, C * Gc)
-                  for arr in (M.bands, L.bands, M.Vt, L.Vt)]
-        cores = []
+        fsub = {}
         for i in range(C):
-            mb, lb, mv, lv = [None if arr is None
-                              else arr[i * Gc:(i + 1) * Gc] for arr in padded]
-            bands, Vt = self._combine_ml(mb, lb, mv, lv, Gc, a, b, dM, dL)
-            cores.append(self._factor_core(bands, Vt))
-        return {"chunks": cores, "Gc": Gc, "ab": (a, b)}
+            lo, hi = i * Gc, min(G, (i + 1) * Gc)
+            part = self._factor_bands(self._combine_bands(
+                M.bands[lo:hi], L.bands[lo:hi], a, b, dM, dL))
+            if C == 1:
+                fsub = part
+                break
+            for name, arr in part.items():
+                axis = 0 if name == "lastOp" else 1          # the group axis
+                if name not in fsub:
+                    shape = list(arr.shape)
+                    shape[axis] = G
+                    fsub[name] = arr.new_empty(shape)
+                fsub[name].narrow(axis, lo, hi - lo).copy_(arr)
+            del part
+        aux = {"fsub": fsub, "factor_chunks": C, "ab": (a, b)}
+        if self.t:
+            Vt = torch.zeros((G, self.t, self.n_pad), dtype=M.bands.dtype,
+                             device=self.device)
+            if M.Vt is not None:
+                Vt += a * M.Vt
+            if L.Vt is not None:
+                Vt += b * L.Vt
+            aux["Vt"] = Vt
+            aux["YbT"] = self._woodbury(fsub, Vt)
+        return aux
 
     def _aux_matvec(self, aux, x, mats):
         a, b = aux["ab"]
         MX, LX = self.matvec_pair(*mats, x)
         return a * MX + b * LX
 
-    def _solve_core(self, core, fp):
-        fsub = core["fsub"]
-        y = banded_substitution(fsub, fp)
-        if self.t:
-            Vy = (torch.einsum("gtn,gn->gt", core["Vt"], y)
-                  - y[:, self._pin_pos_t])
-            z = torch.einsum("gij,gj->gi", fsub["CapInv"], Vy)
-            y = y - torch.einsum("gtn,gt->gn", core["YbT"], z)
-        return y
-
     def _solve_once(self, aux, rhs):
-        G = rhs.shape[0]
+        """One solve against the factored aux: the row permutation, one
+        substitution over all G groups, the Woodbury correction, the
+        column permutation back."""
         fp = rhs.index_select(1, self._row_perm_t)
         fp = zeropad(fp, ((0, 0), (0, self.n_pad - self.n)))
-        # each chunk of the factor solves its own group slab (the last
-        # one edge-padded like the factor)
-        chunks, Gc = aux["chunks"], aux["Gc"]
-        fp = self._pad_groups(fp, len(chunks) * Gc)
-        y = torch.cat([self._solve_core(core, fp[i * Gc:(i + 1) * Gc])
-                       for i, core in enumerate(chunks)])[:G]
+        fsub = aux["fsub"]
+        y = banded_substitution(fsub, fp)
+        if self.t:
+            Vy = (torch.einsum("gtn,gn->gt", aux["Vt"], y)
+                  - y[:, self._pin_pos_t])
+            z = torch.einsum("gij,gj->gi", fsub["CapInv"], Vy)
+            y = y - torch.einsum("gtn,gt->gn", aux["YbT"], z)
         return y[:, :self.n].index_select(1, self._pos_col_t)
 
     def solve(self, aux, rhs, mats):

@@ -55,22 +55,34 @@ def test_dispatch_uses_plain_on_cpu():
     assert tfused.LAUNCHES["banded_subst"] == before
 
 
+# (G, NB, q, k): several columns per group; NB = 2; q < 32 and not a
+# multiple of 8 (q = 17: BwdOp and, in f32, lastOp slabs that are not
+# 16-byte multiples, so the ring takes plain loads there); k = 16 (the
+# Woodbury form); q = 64 (a FwdOp of 128 KB in f64, streamed in row
+# panels); more groups than the H100's 132 SMs (two blocks per SM, so a
+# warp per row, where the smaller grids split each row over threads);
+# q = 8 with two columns
+CARD_SHAPES = [(5, 7, 32, 3), (3, 2, 32, 1), (4, 9, 17, 1), (4, 9, 17, 16),
+               (2, 5, 64, 1), (2, 5, 64, 16), (200, 33, 32, 1), (6, 12, 8, 2)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_kernel_matches_plain_on_card(dtype):
-    """CUDA kernel vs plain version on the card, at a small shape with
-    several right-hand sides per group (bound: 1e-12 relative in f64,
-    1e-5 in f32 — the summation order differs; f32 against f64 on these
-    operators differs by ~4e-7)."""
+@pytest.mark.parametrize("G,NB,q,k", CARD_SHAPES)
+def test_kernel_matches_plain_on_card(G, NB, q, k, dtype):
+    """CUDA kernel vs plain version on the card (bound: 1e-12 relative in
+    f64, 1e-5 in f32 — the summation order differs; f32 against f64 on
+    these operators differs by ~4e-7)."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device")
     rng = np.random.default_rng(11)
-    G, NB, q, k = 5, 7, 32, 3
     fsub = torch_fsub(random_fsub(rng, G, NB, q), "cuda", dtype)
-    fp = torch.as_tensor(rng.standard_normal((G, k, NB * q))).to("cuda", dtype)
+    shape = (G, NB * q) if k == 1 else (G, k, NB * q)
+    fp = torch.as_tensor(rng.standard_normal(shape)).to("cuda", dtype)
     out = tfused.substitution_cuda(fsub, fp)
     ref = tfused.substitution_plain(fsub, fp)
     torch.cuda.synchronize()
+    assert out.shape == fp.shape
     err = (out - ref).abs().max() / ref.abs().max()
     assert float(err) <= (1e-12 if dtype == torch.float64 else 1e-5)
 

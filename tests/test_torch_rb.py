@@ -104,10 +104,10 @@ def test_step_from_carried_state_matches_jax():
 @pytest.mark.parametrize("Nx,Nz,chunk_mb,chunks", [(8, 32, "0.6", 2),
                                                    (32, 16, "0.5", 6)])
 def test_chunked_factor_matches_jax(Nx, Nz, chunk_mb, chunks):
-    """The G-chunked factorization and solve (BANDED_CHUNK_MB small enough
-    to split the groups; 6 chunks of 3 cover the 16 groups of RB 32x16
-    with two edge-padded duplicates) steps like the JAX package's
-    unchunked solve."""
+    """The G-chunked factorization (BANDED_CHUNK_MB small enough to split
+    the groups; 6 chunks of at most 3 cover the 16 groups of RB 32x16)
+    steps like the JAX package's unchunked solve. The chunks write one
+    operator store of exactly G groups: no padded duplicates."""
     from dedalus_tpu_torch.tools.config import config
     section = config["linear algebra"]
     old = section["BANDED_CHUNK_MB"]
@@ -118,11 +118,51 @@ def test_chunked_factor_matches_jax(Nx, Nz, chunk_mb, chunks):
             ts.step(DT)
     finally:
         section["BANDED_CHUNK_MB"] = old
-    assert len(ts.timestepper._lhs_aux[0]["chunks"]) == chunks
+    aux = ts.timestepper._lhs_aux[0]
+    G = ts.X.shape[0]
+    assert aux["factor_chunks"] == chunks
+    assert aux["fsub"]["FwdOp"].shape[1] == aux["fsub"]["BwdOp"].shape[1] == G
+    assert aux["fsub"]["lastOp"].shape[0] == G
+    assert aux["fsub"]["CapInv"].shape[0] == aux["YbT"].shape[0] == G
+    assert aux["Vt"].shape[0] == G
     js, _ = jax_rb(Nx, Nz, np.float64, matsolver="banded")
     for _ in range(3):
         js.step(DT)
     assert rel_err(ts.X.numpy(), np.asarray(js.X)) <= RTOL
+
+
+def test_chunked_solve_matches_unchunked(monkeypatch):
+    """RB 32x16 factored in 6 G-chunks (BANDED_CHUNK_MB = 0.5) solves like
+    the same system factored in one piece, to 1e-14 relative; the factor
+    makes one substitution call (the Woodbury solve over the whole store)
+    and a solve makes one, whatever the chunk count."""
+    from dedalus_tpu_torch.libraries import pencilops
+    from dedalus_tpu_torch.tools.config import config
+    ts, _ = torch_rb(32, 16, np.float64, matsolver="banded", device="cpu")
+    ops, M, L = ts.ops, ts.M_mat, ts.L_mat
+    b = DT * ts.timestepper.uniq_H_diag[0]
+    rhs = torch.as_tensor(np.random.default_rng(17).standard_normal(
+        tuple(ts.X.shape)))
+    calls = []
+    substitution = pencilops.banded_substitution
+
+    def counted(fsub, fp):
+        calls.append(tuple(fp.shape))
+        return substitution(fsub, fp)
+
+    monkeypatch.setattr(pencilops, "banded_substitution", counted)
+    section = config["linear algebra"]
+    solves = {}
+    for chunk_mb, chunks in (("0.5", 6), ("2048", 1)):
+        monkeypatch.setitem(section, "BANDED_CHUNK_MB", chunk_mb)
+        calls.clear()
+        aux = ops.factor_lincomb(1.0, M, b, L)
+        assert aux["factor_chunks"] == chunks
+        assert calls == [(ts.X.shape[0], ops.t, ops.n_pad)]
+        calls.clear()
+        solves[chunks] = ops._solve_once(aux, rhs).numpy()
+        assert calls == [(ts.X.shape[0], ops.n_pad)]
+    assert rel_err(solves[6], solves[1]) <= 1e-14
 
 
 @pytest.mark.parametrize("sweeps", ["2", "3"])

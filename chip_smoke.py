@@ -2,7 +2,7 @@
 """
 Smoke run of the PyTorch/CUDA port (dedalus_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py                 # RB 256x64 main path + RB 2048x1024
+    python3 chip_smoke.py                 # every phase at full size
     python3 chip_smoke.py --real 1024 512 # a smaller real-size phase
 
 Phases (each prints its own lines; any failure exits non-zero):
@@ -24,10 +24,30 @@ Phases (each prints its own lines; any failure exits non-zero):
      count (factorizations + stage solves x (1 + refinement sweeps),
      whatever the factor's G-chunk count). Then the kernel vs plain check
      at the solver's own factor operators (f64 and f32), and a per-layer
-     time breakdown of one stage.
+     time breakdown of one stage. Beside it, RB 256x64 with
+     matsolver=None ('auto' picks the dense path at this size, as the JAX
+     package does off the TPU): build, factor, steps/s, and its state
+     after the same 50 steps against the banded one (1e-10 relative).
+     Neither path may synchronize the host in a steady step (torch's
+     sync debug mode; so too in phases 5 and 6).
   4. Real size: RB 2048x1024 (the target of BASELINE.json): build,
      factor, 10 steps, steps/s, peak device memory, the same checks.
-  5. The kernels line, the card line, and the result line.
+  5. kdv1024 (benchmarks/progression.py config 1: RealFourier 1024,
+     SBDF2, dt 2e-3, dense): build, 2 factorizations, steps/s over 500
+     steps after 10 warm ones, no host syncs in steady steps, a per-layer
+     breakdown, launches per step and the idle share (torch.profiler).
+     Checks: mass integ(u) conserved to 1e-13 relative; KdV 64, 50 steps,
+     card vs CPU to 1e-12.
+  6. shear512 (config 2: RealFourier^2 512x512, RK222, dt 0.25/512,
+     dense, G = 65536, S = 20): build with its parts, factor, steps/s
+     over 100 steps after 10 warm ones, peak memory, the same profile.
+     Checks: div(u) + tau_p within 1e-10 of max|grad u|, |integ(p)| <=
+     1e-10, integ(s) conserved to 1e-12 relative, shear 32x32 10 steps
+     card vs CPU to 1e-12; then 30 steps driven by CFL with the settings
+     of examples/shear_flow.py: the dt sequence and the refactorizations.
+  7. The kernels line, the card line, and the result line.
+
+Each phase prints its seconds and one JSON record on its own line.
 
 Detailed results also go to chiprun_out/chip_smoke.json.
 """
@@ -249,6 +269,225 @@ def breakdown(label, solver, dt, reps):
     return out
 
 
+def rel_diff(a, b):
+    import numpy as np
+    return float(np.max(np.abs(a - b)) / np.max(np.abs(b)))
+
+
+def card_vs_cpu(label, build, steps):
+    """The same small run on the card and on the CPU (the CPU path is held
+    against the JAX package by tests/test_torch_*.py): max relative
+    difference of the states, failing above 1e-12."""
+    xs = []
+    for device in ("cuda", "cpu"):
+        solver, dt = build(device)
+        for _ in range(steps):
+            solver.step(dt)
+        xs.append(solver.X.cpu().numpy())
+    err = rel_diff(xs[0], xs[1])
+    log(f"{label} cuda vs cpu, {steps} steps: max relative difference "
+        f"{err:.3e}")
+    if not err <= 1e-12:
+        fail(f"{label} on the card disagrees with the CPU run: {err:.3e}")
+    return err
+
+
+def steps_per_s(solver, dt, steps):
+    """Steps per second over `steps` steps, closed by a synchronize."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        solver.step(dt)
+    torch.cuda.synchronize()
+    return steps / (time.perf_counter() - t0)
+
+
+def host_syncs(solver, dt, steps=3):
+    """Host synchronizations torch reports in steady steps
+    (torch.cuda.set_sync_debug_mode('warn')): count per step and the
+    first messages."""
+    import warnings
+    import torch
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for _ in range(steps):
+                solver.step(dt)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    msgs = [str(w.message) for w in caught
+            if "called a synchronizing" in str(w.message)]
+    return len(msgs) / steps, msgs[:3]
+
+
+def check_no_host_syncs(label, rec, solver, dt):
+    """Record the host synchronizations of steady steps; a step must
+    queue its work without waiting for the card."""
+    rec["host_syncs_per_step"], rec["host_sync_messages"] = \
+        host_syncs(solver, dt)
+    if rec["host_syncs_per_step"]:
+        fail(f"{label}: {rec['host_syncs_per_step']} host synchronizations "
+             f"per steady step: {rec['host_sync_messages']}")
+
+
+def release():
+    """Free the previous phase's solver: its fields and lazy pulls form
+    reference cycles, which only the collector frees."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def dense_breakdown(label, solver, dt, reps, cfl=None):
+    """Per-layer device times (median ms, CUDA events) of a dense-path
+    step on the solver's current state: the RHS evaluation, the M/L
+    matvec pair, one dense solve, one factorization, a dealiased transform
+    roundtrip of the state, the CFL frequency (with its one host read)
+    and one step."""
+    ops, X = solver.ops, solver.X
+    M, L = solver.M_mat, solver.L_mat
+    aux = solver.timestepper._lhs_aux
+    aux = aux[0] if isinstance(aux, list) else aux
+    out = {
+        "rhs_eval": median_ms(lambda: solver.eval_F(X, 0.0), reps=reps),
+        "matvec_pair": median_ms(lambda: ops.matvec_pair(M, L, X),
+                                 reps=reps),
+        "dense_solve": median_ms(lambda: ops.solve(aux, X), reps=reps),
+        "factor": median_ms(lambda: ops.factor_lincomb(1.0, M, dt, L),
+                            reps=5, warm=1),
+        "transform_roundtrip": median_ms(solver.enforce_hermitian_symmetry,
+                                         reps=reps),
+    }
+    if cfl is not None:
+        out["cfl"] = median_ms(cfl.compute_max_frequency, reps=reps)
+    out["step"] = median_ms(lambda: solver.step(dt), reps=reps, warm=1)
+    log(f"breakdown {label} ms " + json.dumps(out))
+    return out
+
+
+def kdv_phase(N, steps):
+    """kdv1024: build, factorizations, steps/s, host syncs, breakdown and
+    profile; mass conservation; KdV 64 card vs CPU."""
+    import torch
+    import dedalus_tpu_torch.public as d3
+    from dedalus_tpu_torch.extras.bench_problems import build_kdv_solver
+    from dedalus_tpu_torch.extras.profile_step import profile_solver
+    rec = {"size": N, "steps": steps, "card_vs_cpu_kdv64_rel": card_vs_cpu(
+        "kdv64", lambda device: build_kdv_solver(64, device=device), 50)}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    solver, dt = build_kdv_solver(N, device="cuda")
+    torch.cuda.synchronize()
+    rec["build_s"] = time.perf_counter() - t0
+    rec["build_phases_s"] = dict(solver.build_seconds)
+    rec["pencil_shape"] = list(solver.pencil_shape)
+    rec["ops"] = f"{solver.ops.kind} {solver.ops.solver_cls.__name__}"
+    u = solver.variables[0]
+    mass = lambda: float(d3.integ(u).evaluate()["g"].ravel()[0])  # noqa: E731
+    mass0 = mass()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        solver.step(dt)
+    torch.cuda.synchronize()
+    rec["warm_10_steps_s"] = time.perf_counter() - t0
+    rec["steps_per_s"] = steps_per_s(solver, dt, steps)
+    check_no_host_syncs(f"kdv{N}", rec, solver, dt)
+    rec["factorizations"] = solver.timestepper.factorizations
+    rec["mass_drift_rel"] = abs(mass() - mass0) / abs(mass0)
+    rec["max_memory_allocated_GB"] = torch.cuda.max_memory_allocated() / 1e9
+    if not bool(torch.isfinite(solver.X).all()):
+        fail("kdv: non-finite state")
+    if rec["factorizations"] != 2:
+        fail(f"kdv: {rec['factorizations']} factorizations, SBDF2 at "
+             "constant dt makes 2")
+    if not rec["mass_drift_rel"] <= 1e-13:
+        fail(f"kdv: mass drift {rec['mass_drift_rel']:.3e} > 1e-13")
+    rec["breakdown_ms"] = dense_breakdown(f"kdv{N}", solver, dt, 20)
+    rec["profile"] = profile_solver(solver, dt, steps=20, warm=2)
+    return rec
+
+
+def shear_phase(N, steps, cfl_steps):
+    """shear512: build, factor, steps/s, host syncs, peak memory,
+    breakdown and profile; incompressibility, gauge and tracer checks;
+    shear 32x32 card vs CPU; a CFL-driven run with the example's
+    settings."""
+    import numpy as np
+    import torch
+    import dedalus_tpu_torch.public as d3
+    from dedalus_tpu_torch.extras.bench_problems import build_shear_solver
+    from dedalus_tpu_torch.extras.profile_step import profile_solver
+    rec = {"size": N, "steps": steps,
+           "card_vs_cpu_shear32_rel": card_vs_cpu(
+               "shear32", lambda device: build_shear_solver(
+                   32, device=device), 10)}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    solver, dt = build_shear_solver(N, device="cuda")
+    torch.cuda.synchronize()
+    rec["build_s"] = time.perf_counter() - t0
+    rec["build_phases_s"] = dict(solver.build_seconds)
+    rec["pencil_shape"] = list(solver.pencil_shape)
+    rec["ops"] = f"{solver.ops.kind} {solver.ops.solver_cls.__name__}"
+    t0 = time.perf_counter()
+    solver.timestepper._ensure_factor(dt)
+    torch.cuda.synchronize()
+    rec["factor_s"] = time.perf_counter() - t0
+    f = {v.name: v for v in solver.variables}
+    u, s, p, tau_p = f["u"], f["s"], f["p"], f["tau_p"]
+    integ = lambda e: float(d3.integ(e).evaluate()["g"].ravel()[0])  # noqa: E731
+    # integ(s) sits near 0 for this initial condition: its drift is taken
+    # relative to integ(|s|)
+    s0, s_abs = integ(s), integ(np.abs(s))
+    t0 = time.perf_counter()
+    for _ in range(10):
+        solver.step(dt)
+    torch.cuda.synchronize()
+    rec["warm_10_steps_s"] = time.perf_counter() - t0
+    rec["steps_per_s"] = steps_per_s(solver, dt, steps)
+    check_no_host_syncs(f"shear{N}", rec, solver, dt)
+    rec["max_memory_allocated_GB"] = torch.cuda.max_memory_allocated() / 1e9
+    if not bool(torch.isfinite(solver.X).all()):
+        fail("shear: non-finite state")
+    div = (d3.div(u) + tau_p).evaluate()["c"]
+    grad = d3.grad(u).evaluate()["c"]
+    checks = {"div(u)+tau_p / max|grad u|":
+              float(np.max(np.abs(div)) / np.max(np.abs(grad))),
+              "|integ(p)|": abs(integ(p)),
+              "integ(s) drift / integ(|s|)": abs(integ(s) - s0) / s_abs}
+    rec["checks"] = checks
+    log(f"shear{N} checks " + json.dumps(checks))
+    bounds = {"div(u)+tau_p / max|grad u|": 1e-10, "|integ(p)|": 1e-10,
+              "integ(s) drift / integ(|s|)": 1e-12}
+    bad = {k: v for k, v in checks.items() if not v <= bounds[k]}
+    if bad:
+        fail(f"shear{N}: checks out of bound: {bad}")
+    cfl = d3.CFL(solver, initial_dt=1e-2, cadence=10, safety=0.2,
+                 threshold=0.1, max_change=1.5, min_change=0.5, max_dt=1e-2)
+    cfl.add_velocity(u)
+    rec["breakdown_ms"] = dense_breakdown(f"shear{N}", solver, dt, 10, cfl)
+    rec["profile"] = profile_solver(solver, dt, steps=10, warm=2)
+    # the main loop of examples/shear_flow.py
+    factorizations = solver.timestepper.factorizations
+    t0 = time.perf_counter()
+    for _ in range(cfl_steps):
+        solver.step(cfl.compute_timestep())
+    torch.cuda.synchronize()
+    dts = [h["dt"] for h in cfl.history]
+    rec["cfl"] = {"steps": cfl_steps, "dt": dts,
+                  "refactorizations": solver.timestepper.factorizations
+                  - factorizations,
+                  "steps_per_s": cfl_steps / (time.perf_counter() - t0)}
+    log(f"shear{N} CFL run " + json.dumps(rec["cfl"]))
+    if not (bool(torch.isfinite(solver.X).all())
+            and all(0 < dt <= 1e-2 for dt in dts)):
+        fail(f"shear{N}: the CFL run gave a bad state or dt")
+    return rec
+
+
 def expected_launches(solver, steps, factorizations):
     """One launch per factorization (the Woodbury solve) and one per
     solve, whatever the factor's G-chunk count; also returns that count."""
@@ -274,6 +513,19 @@ def main():
     from dedalus_tpu_torch.core import fusedstep
     from dedalus_tpu_torch.extras.bench_problems import build_rb_solver
 
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    phase_t0 = [time.perf_counter()]
+
+    def phase_done(name):
+        """Print the phase's seconds and write the results so far."""
+        now = time.perf_counter()
+        RESULTS.setdefault("phase_s", {})[name] = now - phase_t0[0]
+        log(f"phase {name}: {now - phase_t0[0]:.2f} s")
+        phase_t0[0] = now
+        (out_dir / "chip_smoke.json").write_text(json.dumps(RESULTS,
+                                                            indent=1))
+
     # ---------------------------------------------------------- phase 1
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -291,6 +543,7 @@ def main():
     RESULTS["ptxas"] = fusedstep.ptxas_report()
     log(RESULTS["ptxas"])
     torch.backends.cuda.matmul.allow_tf32 = False
+    phase_done("1 card and build")
 
     # ---------------------------------------------------------- phase 2
     Gr, NBr, qr = 1024, 257, 32       # RB 2048x1024: G = Nx/2, NB, q
@@ -301,23 +554,15 @@ def main():
                      fsub, fp)
         del fsub, fp
     torch.cuda.empty_cache()
+    phase_done("2 kernel vs plain")
 
     # ---------------------------------------------------------- phase 3
     # a small input against the port's CPU path (held against the JAX
     # package by tests/test_torch_rb.py)
-    small = []
-    for device in ("cuda", "cpu"):
-        s, _ = build_rb_solver(8, 32, np.float64, matsolver="banded",
-                               device=device)
-        for _ in range(10):
-            s.step(0.01)
-        small.append(s.X.cpu().numpy())
-    small_err = float(np.max(np.abs(small[0] - small[1]))
-                      / np.max(np.abs(small[1])))
-    RESULTS["rb8x32_cuda_vs_cpu_rel"] = small_err
-    log(f"rb8x32 cuda vs cpu, 10 steps: max relative difference {small_err:.3e}")
-    if not small_err <= 1e-12:
-        fail(f"rb8x32 on the card disagrees with the CPU run: {small_err:.3e}")
+    RESULTS["rb8x32_cuda_vs_cpu_rel"] = card_vs_cpu(
+        "rb8x32", lambda device: (build_rb_solver(
+            8, 32, np.float64, matsolver="banded", device=device)[0], 0.01),
+        10)
 
     dt = 1e-3
     t0 = time.perf_counter()
@@ -351,6 +596,40 @@ def main():
         fail(f"kernel launches on the main path {launches['banded_subst']} "
              f"!= expected {expect}")
     main["checks"] = rb_checks("rb256x64", solver, b)
+    x_banded = solver.X.cpu().numpy()
+    check_no_host_syncs("rb256x64", main, solver, dt)
+
+    # the same run with matsolver=None: 'auto' takes the dense path here
+    # (the JAX package's rule, written for a TPU, sizes it at 283 MB)
+    t0 = time.perf_counter()
+    dsolver, _ = build_rb_solver(256, 64, np.float64, device="cuda")
+    torch.cuda.synchronize()
+    dense = {"size": "256x64", "steps": args.steps,
+             "build_s": time.perf_counter() - t0,
+             "ops": f"{dsolver.ops.kind} {dsolver.ops.solver_cls.__name__}"}
+    t0 = time.perf_counter()
+    dsolver.timestepper._ensure_factor(dt)
+    torch.cuda.synchronize()
+    dense["factor_s"] = time.perf_counter() - t0
+    dsolver.step(dt)
+    dense["steps_per_s"] = steps_per_s(dsolver, dt, args.steps - 1)
+    dense["vs_banded_rel"] = rel_diff(dsolver.X.cpu().numpy(), x_banded)
+    check_no_host_syncs("rb256x64 dense", dense, dsolver, dt)
+    dense["banded"] = {"steps_per_s": main["steps_per_s"]}
+    t0 = time.perf_counter()
+    solver.ops.factor_lincomb(1.0, solver.M_mat,
+                              dt * solver.timestepper.uniq_H_diag[0],
+                              solver.L_mat)
+    torch.cuda.synchronize()
+    dense["banded"]["factor_s"] = time.perf_counter() - t0
+    log("rb256x64 dense vs banded " + json.dumps(dense))
+    RESULTS["rb256x64_dense"] = dense
+    if dense["ops"].split()[0] != "dense":
+        fail(f"rb256x64 with matsolver=None took {dense['ops']}")
+    if not dense["vs_banded_rel"] <= 1e-10:
+        fail(f"rb256x64 dense state differs from the banded one: "
+             f"{dense['vs_banded_rel']:.3e}")
+    del dsolver
 
     # the kernel at the main path's own shapes and factor operators
     aux = solver.timestepper._lhs_aux[0]
@@ -367,7 +646,8 @@ def main():
 
     RESULTS["breakdown_rb256x64_ms"] = breakdown("rb256x64", solver, dt, 20)
     del solver, b, aux, fsub64, fp64
-    torch.cuda.empty_cache()
+    release()
+    phase_done("3 rb256x64")
 
     # ---------------------------------------------------------- phase 4
     Nx, Nz = args.real
@@ -406,8 +686,29 @@ def main():
     real["checks"] = rb_checks(f"rb{Nx}x{Nz}", solver, b)
     RESULTS[f"breakdown_rb{Nx}x{Nz}_ms"] = breakdown(f"rb{Nx}x{Nz}", solver,
                                                      dt, 5)
+    del solver, b
+    release()
+    phase_done(f"4 rb{Nx}x{Nz}")
 
     # ---------------------------------------------------------- phase 5
+    # the dense paths run no hand-written kernel: the substitution's
+    # count must stay 0 through them
+    for name in fusedstep.LAUNCHES:
+        fusedstep.LAUNCHES[name] = 0
+    RESULTS["kdv"] = kdv_phase(1024, 500)
+    log("kdv1024 " + json.dumps(RESULTS["kdv"]))
+    release()
+    phase_done("5 kdv1024")
+
+    # ---------------------------------------------------------- phase 6
+    RESULTS["shear"] = shear_phase(512, 100, 30)
+    log("shear512 " + json.dumps(RESULTS["shear"]))
+    if fusedstep.LAUNCHES["banded_subst"]:
+        fail("the dense kdv/shear paths launched the banded kernel")
+    release()
+    phase_done("6 shear512")
+
+    # ---------------------------------------------------------- phase 7
     # times and bound at the main path's own shapes (f64); the errors are
     # the worst over every kernel-vs-plain check (f32 ones included), each
     # also listed with its relative bound, times and byte bound
@@ -429,9 +730,7 @@ def main():
         "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
         "library_ms": None, "checks": checks}]}
     RESULTS["kernels"] = kernels["kernels"]
-    out_dir = ROOT / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
-    (out_dir / "chip_smoke.json").write_text(json.dumps(RESULTS, indent=1))
+    phase_done("7 kernels line")
     log(json.dumps(kernels))
     log(card)
     log(json.dumps({"ok": True, "device": {

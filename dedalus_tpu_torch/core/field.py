@@ -179,9 +179,12 @@ class Operand:
         return self.dist.get_coord(name)
 
     def __array_ufunc__(self, ufunc, method, *inputs, **kw):
-        """Dispatch numpy binary ufuncs on operands (e.g. a numpy scalar
-        times a field) to symbolic nodes (reference: core/field.py:44)."""
+        """Dispatch numpy ufuncs on operands to symbolic nodes: the
+        binary ones (e.g. a numpy scalar times a field) to arithmetic, a
+        unary one (np.sqrt(u@u)) to a UnaryGridFunction
+        (reference: core/field.py:44)."""
         from .arithmetic import Add, Multiply, DotProduct
+        from .operators import UnaryGridFunction
         if method != "__call__":
             return NotImplemented
         binary = {np.add: Add, np.multiply: Multiply, np.matmul: DotProduct}
@@ -194,6 +197,8 @@ class Operand:
             return inputs[0] / inputs[1]
         if ufunc is np.negative:
             return -inputs[0]
+        if len(inputs) == 1:
+            return UnaryGridFunction(ufunc, inputs[0])
         return NotImplemented
 
     # ---- symbolic tree API (overridden by Future) ----

@@ -206,10 +206,20 @@ class LinearOperator(Future):
             self.operand.tshape, self.tshape, subproblem,
             out_domain=self.domain)
 
+    def _evaluation_terms(self):
+        """device_terms(), built once per node: the host matrices keep
+        their identity across evaluations, so tools/array.device_constant
+        uploads each once instead of on every step (a host-to-device copy
+        and a cache entry per evaluation otherwise)."""
+        terms = self.__dict__.get("_device_terms")
+        if terms is None:
+            terms = self._device_terms = self.device_terms()
+        return terms
+
     def ev_impl(self, ctx):
         data = ev(self.operand, ctx, "c")
         total = None
-        for tensor_factor, axis_descrs in self.device_terms():
+        for tensor_factor, axis_descrs in self._evaluation_terms():
             term = apply_term(data, tensor_factor, axis_descrs,
                               self.operand.tshape, self.tshape, self.tdim)
             total = term if total is None else total + term
@@ -803,3 +813,86 @@ def Trace(operand):
     if np.isscalar(operand):
         return 0
     return TraceOperator(operand)
+
+
+# ----------------------------------------------------------------------
+# Grid-space nonlinear operators
+
+def _torch_ufunc(np_ufunc):
+    """The torch function of a numpy ufunc, by name (np.sqrt ->
+    torch.sqrt; the JAX package's _jnp_ufunc table)."""
+    fn = getattr(torch, np_ufunc.__name__, None)
+    if fn is None:
+        raise ValueError(f"No torch equivalent for ufunc {np_ufunc.__name__}")
+    return fn
+
+
+@parseable("advective_cfl", "AdvectiveCFL")
+class AdvectiveCFL(Future):
+    """
+    Advective CFL frequency of a velocity field: sum over components of
+    |u_i| / (local grid spacing), with Cartesian spacings (uniform
+    Fourier, sin-theta Chebyshev; reference: core/operators.py:4306
+    AdvectiveCFL + core/basis.py:6086-6215 cfl_spacing). Produces a
+    scalar grid field; CFL flow tools reduce it to a timestep.
+    """
+
+    name = "AdvectiveCFL"
+    natural_layout = "g"
+
+    def __init__(self, operand, coords=None):
+        if not operand.tensorsig:
+            raise ValueError("AdvectiveCFL requires a vector (velocity) field.")
+        super().__init__(operand)
+
+    def rebuild(self, new_args):
+        return AdvectiveCFL(new_args[0])
+
+    @property
+    def operand(self):
+        return self.args[0]
+
+    def _build_metadata(self):
+        operand = self.args[0]
+        self.domain = operand.domain
+        self.tensorsig = ()
+        self.dtype = operand.dtype
+
+    def ev_impl(self, ctx):
+        from ..extras.flow_tools import advective_cfl_frequency
+        ug = ev(self.operand, ctx, "g")
+        return advective_cfl_frequency(self.operand, ug)
+
+
+class UnaryGridFunction(Future):
+    """Pointwise grid-space function of a numpy ufunc, applied as its
+    torch counterpart (reference: core/operators.py:504)."""
+
+    name = "UnaryGridFunction"
+    natural_layout = "g"
+
+    def __init__(self, func, operand):
+        self.func = func
+        self._torch_func = _torch_ufunc(func)
+        super().__init__(operand)
+
+    def rebuild(self, new_args):
+        return UnaryGridFunction(self.func, new_args[0])
+
+    @property
+    def operand(self):
+        return self.args[0]
+
+    def _build_metadata(self):
+        operand = self.args[0]
+        self.domain = operand.domain
+        self.tensorsig = operand.tensorsig
+        self.dtype = operand.dtype
+
+    def __repr__(self):
+        return f"{self.func.__name__}({self.args[0]})"
+
+    __str__ = __repr__
+
+    def ev_impl(self, ctx):
+        return self._torch_func(ev(self.operand, ctx, "g"))

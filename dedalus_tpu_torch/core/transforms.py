@@ -250,7 +250,9 @@ class RealFourierFFT(TransformPlan):
         cos = 2.0 * F.real
         cos[..., 0] /= 2.0
         msin = 2.0 * F.imag
-        msin[..., 0] = 0.0
+        # a slice, not an element: setting a 0-d element of a CUDA tensor
+        # (1-D data) copies the scalar from the host and waits for it
+        msin[..., :1] = 0.0
         out = torch.stack([cos, msin], dim=-1).reshape(data.shape[:-1] + (N,))
         return torch.movedim(out, -1, axis)
 
@@ -261,7 +263,7 @@ class RealFourierFFT(TransformPlan):
         pairs = data.reshape(data.shape[:-1] + (K, 2))
         cos = pairs[..., 0]
         msin = pairs[..., 1].clone()
-        msin[..., 0] = 0.0
+        msin[..., :1] = 0.0
         F = torch.complex(cos, msin) / 2.0
         F[..., 0] *= 2.0
         # pad spectrum to the grid's rfft length

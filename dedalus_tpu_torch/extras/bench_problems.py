@@ -1,12 +1,89 @@
 """
 Shared benchmark/test problem builders (counterpart of
-dedalus_tpu/extras/bench_problems.py): the 2-D Rayleigh-Benard flagship
-configuration (reference: examples/ivp_2d_rayleigh_benard/
-rayleigh_benard.py) and the small 2-D nonlinear heat IVP with tau lines.
-Both build on `device` (default `cuda`; pass "cpu" to run on the host).
+dedalus_tpu/extras/bench_problems.py): the 1-D forced nonlinear heat IVP,
+the progression's KdV-Burgers and shear-flow IVPs (the JAX package's
+benchmarks/progression.py build_kdv/build_shear), the 2-D Rayleigh-Benard
+flagship configuration (reference:
+examples/ivp_2d_rayleigh_benard/rayleigh_benard.py) and the small 2-D
+nonlinear heat IVP with tau lines. Each builds on `device` (default
+`cuda`; pass "cpu" to run on the host).
 """
 
 import numpy as np
+
+
+def build_diffusion_solver(size=64, dtype=np.float64, device=None):
+    """1-D forced nonlinear heat IVP (SBDF2, dense pencil path): parameter
+    field `a`, forcing `f`, and a Burgers term, so the dealiased transform
+    chain and the multistep histories are both exercised."""
+    import dedalus_tpu_torch.public as d3
+    xc = d3.Coordinate("x")
+    dist = d3.Distributor(xc, dtype=dtype, device=device)
+    xb = d3.RealFourier(xc, size=size, bounds=(0, 2 * np.pi))
+    u = dist.Field(name="u", bases=xb)
+    a = dist.Field(name="a", bases=xb)
+    f = dist.Field(name="f", bases=xb)
+    dx = lambda A: d3.Differentiate(A, xc)  # noqa: E731
+    problem = d3.IVP([u], namespace={"u": u, "a": a, "f": f,
+                                     "lap": d3.lap, "dx": dx})
+    problem.add_equation("dt(u) - lap(u) = a*u + f - u*dx(u)")
+    x = dist.local_grid(xb)
+    u["g"] = np.sin(3 * x)
+    a["g"] = 0.1 * np.cos(x)
+    f["g"] = 0.05 * np.sin(2 * x)
+    return problem.build_solver(d3.SBDF2, warmup_iterations=2,
+                                enforce_real_cadence=0)
+
+
+def build_kdv_solver(N, dtype=np.float64, device=None):
+    """1-D KdV-Burgers (RealFourier N, dealias 3/2, SBDF2; reference:
+    examples/ivp_1d_kdv_burgers). Returns (solver, dt)."""
+    import dedalus_tpu_torch.public as d3
+    xcoord = d3.Coordinate("x")
+    dist = d3.Distributor(xcoord, dtype=dtype, device=device)
+    xbasis = d3.RealFourier(xcoord, size=N, bounds=(0, 10), dealias=3 / 2)
+    u = dist.Field(name="u", bases=xbasis)
+    a, b = 1e-4, 2e-4
+    dx = lambda A: d3.Differentiate(A, xcoord)  # noqa: E731
+    problem = d3.IVP([u], namespace=locals())
+    problem.add_equation("dt(u) - a*dx(dx(u)) - b*dx(dx(dx(u))) = - u*dx(u)")
+    solver = problem.build_solver(d3.SBDF2)
+    x = dist.local_grids(xbasis)[0]
+    n = 20
+    u["g"] = np.log(1 + np.cosh(n) ** 2 / np.cosh(n * (x - 3)) ** 2) / (2 * n)
+    return solver, 2e-3
+
+
+def build_shear_solver(N, dtype=np.float64, device=None):
+    """2-D doubly periodic shear flow with a passive tracer (RealFourier^2
+    N x N, dealias 3/2, RK222; reference: examples/ivp_2d_shear_flow).
+    Returns (solver, dt), dt = 0.25 / N."""
+    import dedalus_tpu_torch.public as d3
+    coords = d3.CartesianCoordinates("x", "z")
+    dist = d3.Distributor(coords, dtype=dtype, device=device)
+    xbasis = d3.RealFourier(coords["x"], size=N, bounds=(0, 1), dealias=3 / 2)
+    zbasis = d3.RealFourier(coords["z"], size=N, bounds=(-1, 1), dealias=3 / 2)
+    p = dist.Field(name="p", bases=(xbasis, zbasis))
+    s = dist.Field(name="s", bases=(xbasis, zbasis))
+    u = dist.VectorField(coords, name="u", bases=(xbasis, zbasis))
+    tau_p = dist.Field(name="tau_p")
+    nu = 1 / 5e4
+    D = nu
+    x, z = dist.local_grids(xbasis, zbasis)
+    problem = d3.IVP([u, s, p, tau_p], namespace=locals())
+    problem.add_equation("dt(u) + grad(p) - nu*lap(u) = - u@grad(u)")
+    problem.add_equation("dt(s) - D*lap(s) = - u@grad(s)")
+    problem.add_equation("div(u) + tau_p = 0")
+    problem.add_equation("integ(p) = 0")
+    ug = np.zeros((2,) + np.broadcast_shapes((N, 1), (1, N)))
+    ug[0] = 1 / 2 + 1 / 2 * (np.tanh((z - 0.5) / 0.1) - np.tanh((z + 0.5) / 0.1))
+    ug[1] = (0.1 * np.sin(2 * np.pi * x) * np.exp(-(z - 0.5) ** 2 / 0.01)
+             + 0.1 * np.sin(2 * np.pi * x) * np.exp(-(z + 0.5) ** 2 / 0.01))
+    u["g"] = ug
+    s["g"] = ug[0]
+    solver = problem.build_solver(d3.RK222)
+    # CFL-stable fixed step (u ~ 1, dx = 1/N, safety ~ 0.25)
+    return solver, 0.25 / N
 
 
 def build_rb_solver(Nx, Nz, dtype, matsolver=None, device=None):
@@ -49,8 +126,8 @@ def build_rb_solver(Nx, Nz, dtype, matsolver=None, device=None):
 
 def build_tau_ivp(Nx=16, Nz=8, cadence=100, matsolver=None,
                   timestepper=None, device=None):
-    """2-D nonlinear heat IVP with tau lines (Fourier x Chebyshev).
-    Returns (solver, u, x, z)."""
+    """2-D nonlinear heat IVP with tau lines (Fourier x Chebyshev), SBDF2
+    and the configured matsolver unless given. Returns (solver, u, x, z)."""
     import dedalus_tpu_torch.public as d3
     coords = d3.CartesianCoordinates("x", "z")
     dist = d3.Distributor(coords, dtype=np.float64, device=device)
@@ -65,7 +142,7 @@ def build_tau_ivp(Nx=16, Nz=8, cadence=100, matsolver=None,
     problem.add_equation("u(z=0) = 0")
     problem.add_equation("u(z=1) = 0")
     kw = {"matsolver": matsolver} if matsolver else {}
-    solver = problem.build_solver(timestepper or d3.RK222,
+    solver = problem.build_solver(timestepper or d3.SBDF2,
                                   enforce_real_cadence=cadence, **kw)
     x, z = dist.local_grids(xb, zb)
     u["g"] = np.sin(np.pi * z) * (1 + 0.3 * np.cos(np.pi * x / 2))

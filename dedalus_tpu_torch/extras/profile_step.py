@@ -1,17 +1,20 @@
 """
-Device time and idle share of the RB IVP step on one NVIDIA GPU.
+Device time and idle share of an IVP step on one NVIDIA GPU.
 
-    python -m dedalus_tpu_torch.extras.profile_step            # RB 256x64
-    python -m dedalus_tpu_torch.extras.profile_step 2048 1024
+    python -m dedalus_tpu_torch.extras.profile_step             # RB 256x64
+    python -m dedalus_tpu_torch.extras.profile_step rb 2048 1024
+    python -m dedalus_tpu_torch.extras.profile_step kdv 1024
+    python -m dedalus_tpu_torch.extras.profile_step shear 512
 
-Builds the Rayleigh-Benard solver on `cuda`, takes 3 warm steps, then
-traces `--steps` steps with torch.profiler (CPU + CUDA activities). Prints
-one JSON object: the host wall time per step under the profiler (closed
-by a synchronize; the profiler slows the host side), the device time per
-step (sum of the kernels' device time; one stream, so kernels do not
-overlap), the idle share 1 - device/wall, the kernel launches per step,
-and the ten kernels with the most device time. Raises when no CUDA device
-is present or the trace holds no device time.
+Builds the problem's solver on `cuda` (RB on the banded path, KdV and
+shear with the configured matsolver), takes 3 warm steps, then traces
+`--steps` steps with torch.profiler (CPU + CUDA activities). Prints one
+JSON object: the host wall time per step under the profiler (closed by a
+synchronize; the profiler slows the host side), the device time per step
+(sum of the kernels' device time; one stream, so kernels do not overlap),
+the idle share 1 - device/wall, the kernel launches per step, and the ten
+kernels with the most device time. Raises when no CUDA device is present
+or the trace holds no device time.
 """
 
 import argparse
@@ -21,17 +24,31 @@ import time
 import numpy as np
 import torch
 
-from .bench_problems import build_rb_solver
+from .bench_problems import build_kdv_solver, build_rb_solver, build_shear_solver
 
 
-def profile_steps(Nx, Nz, steps, dt=1e-3):
+def build(problem, sizes=()):
+    """(solver, dt) of `problem` at `sizes` on the card."""
+    if problem == "rb":
+        Nx, Nz = sizes or (256, 64)
+        solver, _ = build_rb_solver(Nx, Nz, np.float64, matsolver="banded",
+                                    device="cuda")
+        return solver, 1e-3
+    if problem == "kdv":
+        return build_kdv_solver(*(sizes or (1024,)), device="cuda")
+    if problem == "shear":
+        return build_shear_solver(*(sizes or (512,)), device="cuda")
+    raise ValueError(f"Unknown problem {problem!r}: rb, kdv or shear")
+
+
+def profile_solver(solver, dt, steps, warm=3):
+    """Trace `steps` steps of a built solver on the card after `warm`
+    untraced ones."""
     from torch.autograd import DeviceType
     from torch.profiler import profile, ProfilerActivity
     if not torch.cuda.is_available():
         raise RuntimeError("profile_step needs a CUDA device")
-    solver, _ = build_rb_solver(Nx, Nz, np.float64, matsolver="banded",
-                                device="cuda")
-    for _ in range(3):
+    for _ in range(warm):
         solver.step(dt)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -57,7 +74,7 @@ def profile_steps(Nx, Nz, steps, dt=1e-3):
     wall_ms = wall / steps * 1e3
     device_ms = device_us / steps / 1e3
     return {
-        "size": f"{Nx}x{Nz}", "steps": steps,
+        "pencil_shape": list(solver.pencil_shape), "steps": steps,
         "device": torch.cuda.get_device_name(0),
         "wall_ms_per_step": wall_ms,
         "device_ms_per_step": device_ms,
@@ -68,13 +85,22 @@ def profile_steps(Nx, Nz, steps, dt=1e-3):
     }
 
 
+def profile_steps(problem, sizes, steps):
+    """Build `problem` at `sizes` on the card and trace `steps` steps."""
+    solver, dt = build(problem, tuple(sizes))
+    out = {"problem": problem, "sizes": list(sizes)}
+    out.update(profile_solver(solver, dt, steps))
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[1])
-    parser.add_argument("Nx", type=int, nargs="?", default=256)
-    parser.add_argument("Nz", type=int, nargs="?", default=64)
+    parser.add_argument("problem", nargs="?", default="rb",
+                        choices=("rb", "kdv", "shear"))
+    parser.add_argument("sizes", type=int, nargs="*")
     parser.add_argument("--steps", type=int, default=5)
     args = parser.parse_args()
-    print(json.dumps(profile_steps(args.Nx, args.Nz, args.steps)))
+    print(json.dumps(profile_steps(args.problem, args.sizes, args.steps)))
 
 
 if __name__ == "__main__":

@@ -1,9 +1,14 @@
 """
-Banded pencil operators (counterpart of dedalus_tpu/libraries/pencilops.py
-BandedOps, on the default plan: fused substitution, sequential composition,
-native dtype).
+Pencil operators (counterpart of dedalus_tpu/libraries/pencilops.py: DenseOps,
+and BandedOps on the default plan: fused substitution, sequential
+composition, native dtype). Both offer one surface (to_device, matvec,
+matvec_pair, factor_lincomb, solve(aux, rhs, mats)), so every timestepper
+family calls either.
 
-The mode-interleaved, matching-aligned permutation
+DenseOps keeps (G, S, S) dense matrices; factor and solve delegate to a
+registered batched matsolver (libraries/matsolvers.py).
+
+BandedOps: the mode-interleaved, matching-aligned permutation
 (core/subsystems.MatrixStructure) makes every true row banded; dense rows
 (BCs, gauges) are replaced by identity "pin" rows and restored by a rank-t
 Woodbury correction (reference Woodbury: libraries/matsolvers.py:285-316).
@@ -23,9 +28,40 @@ import numpy as np
 import torch
 
 from ..core.fusedstep import banded_substitution
+from .matsolvers import get_solver
 from .solvecomp import resolve_refine_sweeps
 from ..tools.array import torch_dtype, zeropad
 from ..tools.config import config
+
+
+class DenseOps:
+    """Dense (G, S, S) pencil operators (small problems / fallback;
+    reference DenseOps, dedalus_tpu/libraries/pencilops.py:209)."""
+
+    kind = "dense"
+
+    def __init__(self, device, matsolver=None):
+        self.device = torch.device(device)
+        self.solver_cls = get_solver(matsolver)
+
+    def to_device(self, host_mat, dtype):
+        return torch.as_tensor(host_mat).to(device=self.device,
+                                            dtype=torch_dtype(dtype))
+
+    def matvec(self, A, X):
+        return torch.einsum("gij,gj->gi", A, X)
+
+    def matvec_pair(self, M, L, X):
+        """(M @ X, L @ X): the two products, equal to separate calls."""
+        return self.matvec(M, X), self.matvec(L, X)
+
+    def factor_lincomb(self, a, A, b, B):
+        """Factor a*A + b*B. The validity-closure identity sits on the
+        last matrix (L), so it stays b*I in the combination."""
+        return self.solver_cls.factor(a * A + b * B)
+
+    def solve(self, aux, rhs, mats=None):
+        return self.solver_cls.solve(aux, rhs)
 
 
 class BandedMatrix:

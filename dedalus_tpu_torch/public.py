@@ -10,12 +10,17 @@ from .core.basis import Jacobi, ChebyshevT, RealFourier
 from .core.field import Field
 from .core.problems import IVP
 from .core.operators import (
-    Differentiate, Convert, Interpolate, Integrate, Lift, Gradient,
-    Divergence, Laplacian, Trace, TimeDerivative, dt)
+    AdvectiveCFL, Differentiate, Convert, Interpolate, Integrate, Lift,
+    Gradient, Divergence, Laplacian, Trace, TimeDerivative,
+    UnaryGridFunction, dt)
 from .core.arithmetic import Add, Multiply, DotProduct
-from .core.timesteppers import (schemes, add_scheme, RungeKuttaIMEX, RK111,
-                                RK222, RK443, RKSMR, RKGFY)
+from .core.timesteppers import (schemes, add_scheme, MultistepIMEX,
+                                RungeKuttaIMEX, CNAB1, SBDF1, CNAB2, MCNAB2,
+                                SBDF2, CNLF2, SBDF3, SBDF4, RK111, RK222,
+                                RK443, RKSMR, RKGFY)
 from .core.solvers import InitialValueSolver
+from .core.evaluator import Evaluator
+from .extras.flow_tools import CFL, GlobalFlowProperty, GlobalArrayReducer
 
 # lowercase operator aliases (reference: core/operators.py aliases)
 dot = DotProduct

@@ -6,6 +6,8 @@ Host functions use numpy/scipy.sparse and run only at problem-setup time.
 Device functions are plain torch functions of their tensor arguments.
 """
 
+import weakref
+
 import numpy as np
 import scipy.sparse as sp
 import torch
@@ -51,16 +53,20 @@ def device_constant(matrix, dtype, device):
     """Device copy of a host (numpy/scipy) operator matrix, cached per
     (object identity, dtype, device): transform and operator matrices are
     built once on the host and uploaded once, not on every evaluation.
-    The cache holds a reference to the host object so its identity cannot
-    be reused by another matrix."""
+    An entry lives as long as its host matrix (a finalizer drops it), so
+    the identity cannot be reused while it is cached, and the matrices of
+    an expression evaluated once do not stay on the device."""
     dtype = torch_dtype(dtype)
     key = (id(matrix), dtype, str(device))
     hit = _CONSTANTS.get(key)
     if hit is not None:
-        return hit[1]
+        return hit
     host = matrix.toarray() if sp.issparse(matrix) else np.asarray(matrix)
-    out = torch.as_tensor(host).to(device=device, dtype=dtype)
-    _CONSTANTS[key] = (matrix, out)
+    # a copy also on the CPU: a tensor sharing the host buffer would keep
+    # the matrix, and so its entry, alive
+    out = torch.tensor(host, dtype=dtype, device=device)
+    _CONSTANTS[key] = out
+    weakref.finalize(matrix, _CONSTANTS.pop, key, None)
     return out
 
 

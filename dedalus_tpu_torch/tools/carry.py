@@ -6,8 +6,9 @@ The JAX solver's arrays are passed as plain numpy (the caller converts
 them; this module imports nothing of the JAX package):
 
   * the pencil state X (G, S)
-  * the M/L band stores {"bands", "Vt"[, "dsel"]}
-  * the MatrixStructure fields (S, NB, q, t_pins, kl, ku, row_perm,
+  * the M/L stores: dense (G, S, S) arrays, or band stores
+    {"bands", "Vt"[, "dsel"]}
+  * for band stores, the MatrixStructure fields (S, NB, q, t_pins, kl, ku, row_perm,
     col_perm, pinned_positions)
   * field coefficient data by field name
 
@@ -45,16 +46,24 @@ def state(X, device, dtype=np.float64):
 
 
 def install_system(solver, structure_fields, matrices, X=None):
-    """Install a carried pencil system into a built port solver: its
-    structure, banded operators and M/L on the solver's device (and the
-    state X when given). The timestepper's factorization is dropped, so
-    the next step factors the carried matrices."""
-    from ..libraries.pencilops import BandedOps
-    st = structure(structure_fields)
-    solver.structure = st
-    solver.ops = BandedOps(st, solver.dist.device)
-    solver._matrices = {name: {k: np.asarray(v) for k, v in arrs.items()}
-                        for name, arrs in matrices.items()}
+    """Install a carried pencil system into a built port solver: M/L on
+    the solver's device with their ops (and the state X when given).
+    `structure_fields` None carries a dense system, {"M": (G, S, S),
+    "L": (G, S, S)}, solved with the solver's dense matsolver; otherwise
+    the band stores with their structure. The timestepper's factorization
+    is dropped, so the next step factors the carried matrices."""
+    from ..libraries.pencilops import BandedOps, DenseOps
+    if structure_fields is None:
+        solver.structure = None
+        solver.ops = DenseOps(solver.dist.device, solver._dense_solver)
+        solver._matrices = {name: np.asarray(arr)
+                            for name, arr in matrices.items()}
+    else:
+        st = structure(structure_fields)
+        solver.structure = st
+        solver.ops = BandedOps(st, solver.dist.device)
+        solver._matrices = {name: {k: np.asarray(v) for k, v in arrs.items()}
+                            for name, arrs in matrices.items()}
     solver.M_mat = solver.ops.to_device(solver._matrices["M"],
                                         solver.pencil_dtype)
     solver.L_mat = solver.ops.to_device(solver._matrices["L"],

@@ -179,4 +179,4 @@ def test_profile_step_needs_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
-        profile_steps(8, 32, 1)
+        profile_steps("rb", (8, 32), 1)

@@ -189,9 +189,11 @@ def test_refine_sweeps_match_jax(sweeps):
     assert rel_err(ts.X.numpy(), np.asarray(js.X)) <= RTOL
 
 
-@pytest.mark.parametrize("matsolver", ["dense", "block"])
-def test_only_the_banded_solver_is_carried(matsolver):
-    with pytest.raises(ValueError, match="banded"):
+@pytest.mark.parametrize("matsolver", ["block", "superlu"])
+def test_unknown_matsolver_raises(matsolver):
+    """A matsolver that is neither a path nor a registered dense solver
+    raises before assembly."""
+    with pytest.raises(ValueError, match="Unknown matsolver"):
         torch_rb(8, 32, np.float64, matsolver=matsolver, device="cpu")
 
 
@@ -225,15 +227,26 @@ def test_step_many_is_a_loop_of_steps():
     assert torch.equal(ts1.X, ts2.X)
 
 
-def test_tau_ivp_matches_jax():
+@pytest.mark.parametrize("explicit", [True, False],
+                         ids=["banded-rk222", "defaults"])
+def test_tau_ivp_matches_jax(explicit):
     """The small 2-D nonlinear heat IVP with tau lines (the second bench
-    builder) at 16x32, RK222, 5 steps."""
+    builder) at 16x32, 5 steps: banded RK222 as asked, and with the
+    builder's defaults, which in both packages are SBDF2 and the
+    configured matsolver (auto: dense at this size)."""
     from dedalus_tpu.extras.bench_problems import build_tau_ivp as jax_tau
     from dedalus_tpu_torch.extras.bench_problems import build_tau_ivp as torch_tau
     import dedalus_tpu.public as jd3
-    js, *_ = jax_tau(16, 32, matsolver="banded", timestepper=jd3.RK222)
-    ts, *_ = torch_tau(16, 32, matsolver="banded", timestepper=td3.RK222,
-                       device="cpu")
+    if explicit:
+        js, *_ = jax_tau(16, 32, matsolver="banded", timestepper=jd3.RK222)
+        ts, *_ = torch_tau(16, 32, matsolver="banded", timestepper=td3.RK222,
+                           device="cpu")
+    else:
+        js, *_ = jax_tau(16, 32)
+        ts, *_ = torch_tau(16, 32, device="cpu")
+        assert type(ts.timestepper).__name__ == "SBDF2" \
+            == type(js.timestepper).__name__
+    assert ts.ops.kind == js.ops.kind == ("banded" if explicit else "dense")
     for _ in range(5):
         js.step(DT)
         ts.step(DT)

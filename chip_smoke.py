@@ -45,7 +45,37 @@ Phases (each prints its own lines; any failure exits non-zero):
      1e-10, integ(s) conserved to 1e-12 relative, shear 32x32 10 steps
      card vs CPU to 1e-12; then 30 steps driven by CFL with the settings
      of examples/shear_flow.py: the dt sequence and the refactorizations.
-  7. The kernels line, the card line, and the result line.
+  7. poisson2048x1024 (examples/poisson.py at the target resolution,
+     LBVP, MATRIX_SOLVER 'auto', so banded: G = 1024, S = 2052, q = 6,
+     NB = 342, 4 pins): build with its phases, solve, 25 warm solves with
+     f changed on the card between them (median ms, CUDA events, and
+     host wall), a re-factor, peak memory; launches from the build to
+     the last timed solve = 1 (the factor's Woodbury solve) + one per
+     solve pass; no host synchronization in a warm solve(); u(y=0) = g
+     to 1e-12 of max|g|, dy(u)(y=Ly) to 1e-10 of max|dy(u)|, the
+     tau-corrected equation to 1e-10 of max|f|; Poisson 64x32 banded
+     card vs CPU to 1e-12. The kernel vs plain on this factor's own
+     operators (q = 6).
+  8. poisson256x128 (the example's size; 'auto' takes the dense path):
+     the same checks and timings, and the forced banded run of the same
+     problem beside it; the two solutions within 1e-12.
+  9. bratu256 (NLBVP u'' + exp(u) = 0, dense): Newton from u = 0 to a
+     perturbation norm below 1e-10 in at most 8 iterations, seconds per
+     iteration split into host Jacobian assembly and factor + solve,
+     error against the closed form <= 1e-10; Bratu 32 card vs CPU to
+     1e-12; the sin-Jacobi NLBVP of the JAX package's tests at N = 64
+     within 1e-6 of cos(x).
+ 10. rbevp64 (examples/rayleigh_benard_evp.py at Nz = 64, complex128,
+     ComplexFourier carrier, solve_sparse of 10 modes around 0) for 5 kx
+     in [3.0, 3.25] at Ra = 1700 and 1710: build and eigensolve seconds
+     per kx; the peak growth rate < 0 at 1700 and > 0 at 1710; the
+     fastest mode put on the card by set_state is finite and no-slip
+     to 1e-10.
+ 11. waves128 (examples/waves_on_a_string.py, Legendre, solve_dense with
+     left eigenvectors): the lowest 8 eigenvalues within 1e-8 of
+     (n pi)^2, left eigenvectors biorthonormal against -M to 1e-8. The
+     kernel's count stays 0 through phases 9-11.
+ 12. The kernels line, the card line, and the result line.
 
 Each phase prints its seconds and one JSON record on its own line.
 
@@ -303,30 +333,30 @@ def steps_per_s(solver, dt, steps):
     return steps / (time.perf_counter() - t0)
 
 
-def host_syncs(solver, dt, steps=3):
-    """Host synchronizations torch reports in steady steps
-    (torch.cuda.set_sync_debug_mode('warn')): count per step and the
-    first messages."""
+def host_syncs(run, reps=3):
+    """Host synchronizations torch reports in `reps` calls of `run` (a
+    steady step, a warm solve; torch.cuda.set_sync_debug_mode('warn')):
+    count per call and the first messages."""
     import warnings
     import torch
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            for _ in range(steps):
-                solver.step(dt)
+            for _ in range(reps):
+                run()
         finally:
             torch.cuda.set_sync_debug_mode("default")
     msgs = [str(w.message) for w in caught
             if "called a synchronizing" in str(w.message)]
-    return len(msgs) / steps, msgs[:3]
+    return len(msgs) / reps, msgs[:3]
 
 
 def check_no_host_syncs(label, rec, solver, dt):
     """Record the host synchronizations of steady steps; a step must
     queue its work without waiting for the card."""
     rec["host_syncs_per_step"], rec["host_sync_messages"] = \
-        host_syncs(solver, dt)
+        host_syncs(lambda: solver.step(dt))
     if rec["host_syncs_per_step"]:
         fail(f"{label}: {rec['host_syncs_per_step']} host synchronizations "
              f"per steady step: {rec['host_sync_messages']}")
@@ -366,6 +396,289 @@ def dense_breakdown(label, solver, dt, reps, cfl=None):
     out["step"] = median_ms(lambda: solver.step(dt), reps=reps, warm=1)
     log(f"breakdown {label} ms " + json.dumps(out))
     return out
+
+
+def poisson_checks(label, f):
+    """Boundary conditions and the tau-corrected equation of a solved
+    Poisson LBVP (build_poisson_solver): |u(y=0) - g| / max|g|,
+    |dy(u)(y=Ly)| / max|dy(u)| (h = 0), and the coefficients of
+    lap(u) + lift(tau_1) + lift(tau_2) - f over max|f|, each <= its
+    bound."""
+    import numpy as np
+    import dedalus_tpu_torch.public as d3
+    u, g, rhs = f["u"], f["g"], f["f"]
+    ybasis = u.domain.bases[1]
+    lift = lambda A, n: d3.Lift(A, ybasis.derivative_basis(2), n)  # noqa: E731
+    dyu = d3.Differentiate(u, "y")
+    Ly = ybasis.bounds[1]
+    checks = {
+        "u(y=0)-g / max|g|": float(
+            np.max(np.abs(d3.Interpolate(u, "y", 0.0).evaluate()["g"]
+                          - g["g"])) / np.max(np.abs(g["g"]))),
+        "dy(u)(y=Ly) / max|dy(u)|": float(
+            np.max(np.abs(d3.Interpolate(dyu, "y", Ly).evaluate()["g"]))
+            / np.max(np.abs(dyu.evaluate()["g"]))),
+        "lap(u)+taus-f / max|f| (coeff)": float(
+            np.max(np.abs((d3.lap(u) + lift(f["tau_1"], -1)
+                           + lift(f["tau_2"], -2) - rhs).evaluate()["c"]))
+            / np.max(np.abs(rhs["c"]))),
+    }
+    bounds = {"u(y=0)-g / max|g|": 1e-12, "dy(u)(y=Ly) / max|dy(u)|": 1e-10,
+              "lap(u)+taus-f / max|f| (coeff)": 1e-10}
+    log(f"{label} checks " + json.dumps(checks))
+    bad = {k: v for k, v in checks.items() if not v <= bounds[k]}
+    if bad:
+        fail(f"{label}: checks out of bound: {bad}")
+    return checks
+
+
+def solution_of(fields):
+    """The solved variables' coefficients, flattened, on the host."""
+    import numpy as np
+    return np.concatenate([np.asarray(fields[k]["c"]).ravel()
+                           for k in ("u", "tau_1", "tau_2")])
+
+
+def timed_solves(solver, f, n):
+    """n warm solves, f changed on the card before each: the median
+    device time (CUDA events) and host wall time (to a synchronize) of
+    one solve, in ms."""
+    import torch
+    rhs = f["f"]
+    f0 = rhs.coeff_data().clone()
+    ev_ms, wall_ms = [], []
+    for i in range(n):
+        rhs["c"] = f0 * (1 + 1e-3 * (i + 1))
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        e0.record()
+        solver.solve()
+        e1.record()
+        torch.cuda.synchronize()
+        wall_ms.append((time.perf_counter() - t0) * 1e3)
+        ev_ms.append(e0.elapsed_time(e1))
+    rhs["c"] = f0
+    return statistics.median(ev_ms), statistics.median(wall_ms)
+
+
+def poisson_run(label, Nx, Ny, matsolver, solves):
+    """Build, factor (in the build), solve and check one Poisson LBVP on
+    the card; time `solves` warm solves and a re-factor; count the
+    kernel's launches from the build to the last timed solve. Returns
+    (record, solver, fields)."""
+    import torch
+    from dedalus_tpu_torch.core import fusedstep
+    from dedalus_tpu_torch.extras.bench_problems import build_poisson_solver
+    torch.cuda.reset_peak_memory_stats()
+    for name in fusedstep.LAUNCHES:
+        fusedstep.LAUNCHES[name] = 0
+    t0 = time.perf_counter()
+    solver, f = build_poisson_solver(Nx, Ny, matsolver=matsolver,
+                                     device="cuda")
+    torch.cuda.synchronize()
+    rec = {"size": f"{Nx}x{Ny}", "matsolver": matsolver,
+           "build_s": time.perf_counter() - t0,
+           "build_phases_s": dict(solver.build_seconds),
+           "pencil_shape": list(solver.pencil_shape),
+           "ops": solver.ops.kind}
+    if solver.ops.kind == "banded":
+        rec.update(q=solver.ops.q, NB=solver.ops.NB, pins=solver.ops.t,
+                   kl=solver.ops.kl, ku=solver.ops.ku,
+                   factor_chunks=solver._aux["factor_chunks"])
+    t0 = time.perf_counter()
+    solver.solve()
+    torch.cuda.synchronize()
+    rec["first_solve_s"] = time.perf_counter() - t0
+    rec["solve_ms"], rec["solve_wall_ms"] = timed_solves(solver, f, solves)
+    rec["warm_solves"] = solves
+    rec["launches"] = fusedstep.LAUNCHES["banded_subst"]
+    if solver.ops.kind == "banded":
+        rec["expected_launches"] = (1 if solver.ops.t else 0) \
+            + (1 + solves) * (1 + solver.ops.sweeps)
+    else:
+        rec["expected_launches"] = 0
+    rec["host_syncs_per_solve"], rec["host_sync_messages"] = \
+        host_syncs(solver.solve, 1)
+    rec["max_memory_allocated_GB"] = torch.cuda.max_memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    solver.ops.factor(solver.L_mat)
+    torch.cuda.synchronize()
+    rec["factor_s"] = time.perf_counter() - t0
+    rec["checks"] = poisson_checks(label, f)
+    log(f"{label} " + json.dumps(rec))
+    if rec["launches"] != rec["expected_launches"]:
+        fail(f"{label}: {rec['launches']} kernel launches, expected "
+             f"{rec['expected_launches']}")
+    if rec["host_syncs_per_solve"]:
+        fail(f"{label}: {rec['host_syncs_per_solve']} host synchronizations "
+             f"in a warm solve(): {rec['host_sync_messages']}")
+    return rec, solver, f
+
+
+def poisson_card_vs_cpu(Nx, Ny, matsolver):
+    """The same Poisson LBVP solved on the card and on the CPU (held
+    against the JAX package by tests/test_torch_bvp.py): max relative
+    difference of the solutions, failing above 1e-12."""
+    from dedalus_tpu_torch.extras.bench_problems import build_poisson_solver
+    out = []
+    for device in ("cuda", "cpu"):
+        solver, f = build_poisson_solver(Nx, Ny, matsolver=matsolver,
+                                         device=device)
+        solver.solve()
+        out.append(solution_of(f))
+    err = rel_diff(out[0], out[1])
+    log(f"poisson{Nx}x{Ny} {matsolver} cuda vs cpu: {err:.3e}")
+    if not err <= 1e-12:
+        fail(f"poisson{Nx}x{Ny} on the card disagrees with the CPU: "
+             f"{err:.3e}")
+    return err
+
+
+def newton_run(solver, u, tol, max_iter=30):
+    """Newton iterations to `tol` of the perturbation norm: per iteration
+    the synced seconds, split into the host Jacobian assembly (the
+    solver's build phases of that rebuild) and the factor + solve."""
+    import torch
+    its = []
+    error = float("inf")
+    while error > tol and solver.iteration < max_iter:
+        if solver.dist.device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solver.newton_iteration()
+        error = solver.perturbation_norm()
+        total = time.perf_counter() - t0
+        host = solver.build_seconds["host_assembly"] \
+            + solver.build_seconds["structure"]
+        its.append({"s": total, "host_assembly_s": host,
+                    "factor_solve_s": total - host,
+                    "perturbation_norm": error})
+    return its
+
+
+def bratu_phase(N):
+    """bratu256: Newton from u = 0 on the card to a perturbation norm
+    below 1e-10 (iterations, seconds per iteration split host/device,
+    error against the closed form); N = 32 card vs CPU; the sin-Jacobi
+    NLBVP of the JAX package's tests at N = 64 against cos(x)."""
+    import numpy as np
+    from dedalus_tpu_torch.extras.bench_problems import (
+        build_bratu_solver, bratu_exact, build_sin_jacobi_solver)
+    finals = []
+    for device in ("cuda", "cpu"):
+        s, u, x = build_bratu_solver(32, device=device)
+        its = newton_run(s, u, 1e-10)
+        finals.append((len(its), np.asarray(u["g"])))
+    rec = {"card_vs_cpu_bratu32_rel": rel_diff(finals[0][1], finals[1][1]),
+           "card_vs_cpu_iterations": [finals[0][0], finals[1][0]]}
+    t0 = time.perf_counter()
+    solver, u, x = build_bratu_solver(N, device="cuda")
+    rec["build_s"] = time.perf_counter() - t0
+    rec["ops"] = solver.ops.kind
+    rec["iterations"] = newton_run(solver, u, 1e-10)
+    rec["n_iterations"] = len(rec["iterations"])
+    rec["max_err_vs_closed_form"] = float(
+        np.max(np.abs(np.asarray(u["g"]) - bratu_exact(x))))
+    rec["residual_norm"] = float(solver.residual_norm())
+    s, u, x = build_sin_jacobi_solver(64, device="cuda")
+    its = newton_run(s, u, 1e-6)
+    rec["sin_jacobi64"] = {
+        "iterations": len(its),
+        "max_err_vs_cos": float(np.max(np.abs(np.asarray(u["g"])
+                                              - np.cos(x))))}
+    log(f"bratu{N} " + json.dumps(rec))
+    checks = [
+        (rec["card_vs_cpu_bratu32_rel"] <= 1e-12
+         and finals[0][0] == finals[1][0], "bratu32 card vs CPU"),
+        (rec["n_iterations"] <= 8, "Newton iterations <= 8"),
+        (rec["max_err_vs_closed_form"] <= 1e-10, "error vs closed form"),
+        (rec["sin_jacobi64"]["max_err_vs_cos"] <= 1e-6, "sin-Jacobi vs cos"),
+    ]
+    bad = [name for ok, name in checks if not ok]
+    if bad:
+        fail(f"bratu{N}: {bad}")
+    return rec
+
+
+def rbevp_phase(Nz, kxs, NEV=10):
+    """rbevp64: the RB onset EVP at Ra = 1700 and 1710 for each kx (build
+    and eigensolve seconds, the peak growth rate, which must change sign
+    across Ra_c = 1707.76); the fastest Ra = 1710 mode put on the card by
+    set_state: finite, and no-slip at both walls."""
+    import numpy as np
+    import torch
+    import dedalus_tpu_torch.public as d3
+    from dedalus_tpu_torch.extras.bench_problems import build_rb_evp
+    rec = {"Nz": Nz, "NEV": NEV, "kx": list(map(float, kxs)), "runs": {}}
+    for Ra in (1700, 1710):
+        runs = []
+        for kx in kxs:
+            t0 = time.perf_counter()
+            solver, fields = build_rb_evp(Nz, kx, Ra, device="cuda")
+            t1 = time.perf_counter()
+            evals = solver.solve_sparse(
+                solver.subproblems_by_group[(1, None)], NEV, target=0)
+            runs.append({"kx": float(kx), "build_s": t1 - t0,
+                         "eigensolve_s": time.perf_counter() - t1,
+                         "growth_rate": float(np.max(evals.imag))})
+        rec["runs"][str(Ra)] = runs
+    peak = {Ra: max(r["growth_rate"] for r in rec["runs"][str(Ra)])
+            for Ra in (1700, 1710)}
+    rec["peak_growth_rate"] = {str(k): v for k, v in peak.items()}
+    best = max(rec["runs"]["1710"], key=lambda r: r["growth_rate"])
+    solver, fields = build_rb_evp(Nz, best["kx"], 1710, device="cuda")
+    evals = solver.solve_sparse(solver.subproblems_by_group[(1, None)], NEV,
+                                target=0)
+    solver.set_state(int(np.argmax(evals.imag)))
+    u = fields["u"]
+    ug = u["g"]
+    walls = max(float(np.max(np.abs(d3.Interpolate(u, "z", z).evaluate()
+                                     ["g"]))) for z in (0.0, 1.0))
+    rec["mode"] = {"kx": best["kx"], "finite": bool(np.isfinite(ug).all()),
+                   "device": str(u.data.device),
+                   "no_slip_rel": walls / float(np.max(np.abs(ug)))}
+    log(f"rbevp{Nz} " + json.dumps(rec))
+    if not (peak[1710] > 0 > peak[1700]):
+        fail(f"rbevp{Nz}: peak growth rates {peak} do not change sign "
+             "across Ra_c = 1707.76")
+    if not (rec["mode"]["finite"] and rec["mode"]["no_slip_rel"] <= 1e-10):
+        fail(f"rbevp{Nz}: the fastest mode {rec['mode']}")
+    if u.data.device.type != "cuda":
+        fail(f"rbevp{Nz}: set_state left the mode on {u.data.device}")
+    torch.cuda.synchronize()
+    return rec
+
+
+def waves_phase(N):
+    """waves128: the Legendre string EVP by solve_dense(left=True): the
+    lowest 8 eigenvalues against (n pi)^2 (1e-8 relative) and the left
+    eigenvectors biorthonormal against -M (1e-8)."""
+    import numpy as np
+    from dedalus_tpu_torch.extras.bench_problems import build_waves_evp
+    t0 = time.perf_counter()
+    solver, u = build_waves_evp(N, device="cuda")
+    t1 = time.perf_counter()
+    sp = solver.subproblems[0]
+    evals = solver.solve_dense(sp, left=True)
+    t2 = time.perf_counter()
+    idx = np.argsort(np.abs(evals))[:8]
+    exact = (np.arange(1, 9) * np.pi) ** 2
+    M = solver._group_csr(sp)["M"].toarray()
+    B = np.conj(solver.left_eigenvectors[:, idx]).T @ (-M) \
+        @ solver.eigenvectors[:, idx]
+    rec = {"N": N, "build_s": t1 - t0, "eigensolve_s": t2 - t1,
+           "max_rel_err_8": float(np.max(np.abs(evals[idx] - exact)
+                                         / exact)),
+           "biorthonormality_err": float(np.max(np.abs(B - np.eye(8))))}
+    solver.set_state(int(idx[0]))
+    rec["mode_finite"] = bool(np.isfinite(u["g"]).all())
+    log(f"waves{N} " + json.dumps(rec))
+    if not (rec["max_rel_err_8"] <= 1e-8
+            and rec["biorthonormality_err"] <= 1e-8 and rec["mode_finite"]):
+        fail(f"waves{N}: {rec}")
+    return rec
 
 
 def kdv_phase(N, steps):
@@ -502,6 +815,7 @@ def main():
     parser.add_argument("--real", type=int, nargs=2, default=(2048, 1024),
                         metavar=("NX", "NZ"))
     parser.add_argument("--real-steps", type=int, default=10)
+    parser.add_argument("--poisson-solves", type=int, default=25)
     args = parser.parse_args()
 
     import torch
@@ -709,28 +1023,107 @@ def main():
     phase_done("6 shear512")
 
     # ---------------------------------------------------------- phase 7
-    # times and bound at the main path's own shapes (f64); the errors are
-    # the worst over every kernel-vs-plain check (f32 ones included), each
+    # the boundary value problems: card vs CPU at 64x32 on the banded path
+    # (held against the JAX package by tests/test_torch_bvp.py), then
+    # Poisson at the target resolution through the public API, 'auto'
+    # picking the banded path there (dense would be 34.5 GB)
+    RESULTS["poisson64x32_cuda_vs_cpu_rel"] = poisson_card_vs_cpu(
+        64, 32, "banded")
+    rec, solver, f = poisson_run("poisson2048x1024", 2048, 1024, None,
+                                 args.poisson_solves)
+    if rec["ops"] != "banded":
+        fail(f"poisson2048x1024 under 'auto' took the {rec['ops']} path")
+    RESULTS["poisson2048x1024"] = rec
+    fsub = {k: solver._aux["fsub"][k] for k in ("FwdOp", "BwdOp", "lastOp")}
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    fp = torch.randn((fsub["lastOp"].shape[0], solver.ops.n_pad),
+                     generator=gen, device="cuda", dtype=torch.float64)
+    poisson_kernel = check_kernel("poisson2048x1024-factors", fsub, fp)
+    del solver, f, fsub, fp
+    release()
+    phase_done("7 poisson2048x1024")
+
+    # ---------------------------------------------------------- phase 8
+    # the example's own size: 'auto' takes the dense path (69 MB), as the
+    # JAX package does off the TPU; the banded path of the same problem
+    # beside it
+    dense, dsolver, dfields = poisson_run("poisson256x128", 256, 128, None,
+                                          args.poisson_solves)
+    if dense["ops"] != "dense":
+        fail(f"poisson256x128 under 'auto' took the {dense['ops']} path")
+    banded, bsolver, bfields = poisson_run("poisson256x128 banded", 256, 128,
+                                           "banded", args.poisson_solves)
+    dense["banded"] = banded
+    dense["banded_vs_dense_rel"] = rel_diff(solution_of(bfields),
+                                            solution_of(dfields))
+    log("poisson256x128 dense vs banded: solve ms "
+        f"{dense['solve_ms']:.4f} vs {banded['solve_ms']:.4f}, factor s "
+        f"{dense['factor_s']:.4f} vs {banded['factor_s']:.4f}, solutions "
+        f"{dense['banded_vs_dense_rel']:.3e} apart")
+    RESULTS["poisson256x128"] = dense
+    if not dense["banded_vs_dense_rel"] <= 1e-12:
+        fail("poisson256x128: banded and dense solutions differ by "
+             f"{dense['banded_vs_dense_rel']:.3e}")
+    del dsolver, dfields, bsolver, bfields
+    release()
+    phase_done("8 poisson256x128")
+
+    # ---------------------------------------------------------- phase 9
+    # the nonlinear BVPs (dense under 'auto'): the substitution kernel's
+    # count stays 0 through phases 9-11
+    for name in fusedstep.LAUNCHES:
+        fusedstep.LAUNCHES[name] = 0
+    RESULTS["bratu"] = bratu_phase(256)
+    release()
+    phase_done("9 bratu256")
+
+    # --------------------------------------------------------- phase 10
+    RESULTS["rbevp"] = rbevp_phase(64, np.linspace(3.0, 3.25, 5))
+    release()
+    phase_done("10 rbevp64")
+
+    # --------------------------------------------------------- phase 11
+    RESULTS["waves"] = waves_phase(128)
+    if fusedstep.LAUNCHES["banded_subst"]:
+        fail("the dense NLBVP and EVP phases launched the banded kernel")
+    release()
+    phase_done("11 waves128")
+
+    # --------------------------------------------------------- phase 12
+    # times and bound at this slice's main path shapes (Poisson
+    # 2048x1024's own factor operators, q = 6, f64); the errors are the
+    # worst over every kernel-vs-plain check (f32 ones included), each
     # also listed with its relative bound, times and byte bound
     checks = [{k: rec[k] for k in ("shape", "dtype", "k", "max_abs_err",
                                    "max_rel_err", "bound_rel", "ms",
                                    "cold_ms", "stream_ms", "plain_ms",
                                    "bound_ms", "share_of_bound")}
               for rec in RESULTS["kernel_checks"]]
+    by_path = {"rb256x64": launches["banded_subst"],
+               f"rb{Nx}x{Nz}": real["launches"],
+               "poisson2048x1024": RESULTS["poisson2048x1024"]["launches"],
+               "poisson256x128 banded": banded["launches"],
+               "poisson256x128 dense": dense["launches"],
+               "kdv1024, shear512, bratu256, rbevp64, waves128": 0}
     kernels = {"kernels": [{
         "name": "banded_subst", "route": "cuda",
         "source": "dedalus_tpu_torch/csrc/banded_subst.cu",
         "replaces": "dedalus_tpu/core/fusedstep.py:520",
-        "launches": launches["banded_subst"],
+        "launches": RESULTS["poisson2048x1024"]["launches"],
+        "launches_by_path": by_path,
         "max_abs_err": max(c["max_abs_err"] for c in checks),
         "max_rel_err": max(c["max_rel_err"] for c in checks),
-        "launches_real_size": real["launches"],
-        "ms": main_rec["ms"], "cold_ms": main_rec["cold_ms"],
-        "stream_ms": main_rec["stream_ms"], "plain_ms": main_rec["plain_ms"],
-        "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
-        "library_ms": None, "checks": checks}]}
+        "ms": poisson_kernel["ms"], "cold_ms": poisson_kernel["cold_ms"],
+        "stream_ms": poisson_kernel["stream_ms"],
+        "plain_ms": poisson_kernel["plain_ms"],
+        "bound_ms": poisson_kernel["bound_ms"],
+        "bound_by": poisson_kernel["bound_by"],
+        "library_ms": None,
+        "rb256x64": {k: main_rec[k] for k in ("ms", "plain_ms", "bound_ms",
+                                              "bound_by")},
+        "checks": checks}]}
     RESULTS["kernels"] = kernels["kernels"]
-    phase_done("7 kernels line")
+    phase_done("12 kernels line")
     log(json.dumps(kernels))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 """
 Arithmetic expression nodes (counterpart of dedalus_tpu/core/arithmetic.py,
-Cartesian subset): Add, ScalarMultiply, MultiplyFields, DotProduct.
+Cartesian subset): Add, ScalarMultiply, MultiplyFields, DotProduct, Power.
 
 Grid-space products are pointwise torch ops; LHS products with a
 non-constant-coefficient (NCC) factor assemble multiplication matrices by
@@ -128,6 +128,17 @@ class Add(Future):
                 out[var] = out.get(var) + mat if var in out else mat
         return out
 
+    def frechet_differential(self, variables, perturbations):
+        # d(a + b) = da + db: the multilinear rule of Future would keep
+        # the undifferentiated siblings
+        out = 0
+        for a in self.args:
+            if isinstance(a, (Field, Future)):
+                d = a.frechet_differential(variables, perturbations)
+                if not (_is_scalar(d) and d == 0):
+                    out = out + d
+        return out
+
 
 class ScalarMultiply(Future):
     """Multiplication by a scalar constant: linear, layout-agnostic."""
@@ -165,6 +176,12 @@ class ScalarMultiply(Future):
     def expression_matrices(self, subproblem, vars, **kw):
         mats = operand_expression_matrices(self.operand, subproblem, vars, **kw)
         return {var: self.scalar * mat for var, mat in mats.items()}
+
+    def frechet_differential(self, variables, perturbations):
+        d = self.operand.frechet_differential(variables, perturbations)
+        if _is_scalar(d) and d == 0:
+            return 0
+        return ScalarMultiply(self.scalar, d)
 
 
 def Multiply(a, b):
@@ -264,7 +281,9 @@ class ProductBase(Future):
                     f"LHS NCCs may not vary along basis {nb!r}.")
         # fully-constant NCC: scalar multiplier
         if all(d is None for d in descrs):
-            return float(ccomp.ravel()[0]), descrs
+            value = ccomp.ravel()[0]
+            return (complex(value) if np.iscomplexobj(ccomp)
+                    else float(value)), descrs
         return None, descrs
 
     @staticmethod
@@ -446,6 +465,45 @@ class DotProduct(ProductBase):
         M = self._assemble_ncc_matrix(subproblem, ncc, operand, tensor_factor)
         op_mats = operand_expression_matrices(operand, subproblem, vars, **kw)
         return {var: M @ mat for var, mat in op_mats.items()}
+
+
+class Power(Future):
+    """Scalar field to a constant power (dedalus_tpu/core/arithmetic.py:
+    1888), pointwise on the grid."""
+
+    name = "Pow"
+    natural_layout = "g"
+
+    def __init__(self, base, exponent):
+        if not _is_scalar(exponent):
+            raise ValueError("Exponent must be a scalar constant.")
+        self.exponent = exponent
+        super().__init__(base)
+
+    def rebuild(self, new_args):
+        return Power(new_args[0], self.exponent)
+
+    def _build_metadata(self):
+        base = self.args[0]
+        if base.tensorsig:
+            raise ValueError("Power requires scalar fields.")
+        self.domain = base.domain
+        self.tensorsig = ()
+        self.dtype = base.dtype
+
+    def __repr__(self):
+        return f"({self.args[0]}**{self.exponent})"
+
+    def ev_impl(self, ctx):
+        return ev(self.args[0], ctx, "g") ** self.exponent
+
+    def frechet_differential(self, variables, perturbations):
+        base = self.args[0]
+        d = base.frechet_differential(variables, perturbations)
+        if _is_scalar(d) and d == 0:
+            return 0
+        n = self.exponent
+        return n * Power(base, n - 1) * d
 
 
 # parseables

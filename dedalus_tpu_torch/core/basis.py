@@ -1,6 +1,7 @@
 """
-Spectral bases (counterpart of dedalus_tpu/core/basis.py: the Jacobi and
-RealFourier interval bases).
+Spectral bases (counterpart of dedalus_tpu/core/basis.py: the Jacobi
+family with ChebyshevT and Legendre, and the RealFourier and
+ComplexFourier interval bases).
 
 A basis owns: metadata (size, bounds, dealias), the affine change-of-variables
 to its native interval, transform-plan dispatch, group/pair structure along
@@ -14,6 +15,9 @@ matrices):
     (reference: core/basis.py:435 Jacobi).
   * RealFourier: interleaved (cos, -sin) pairs, group_shape=2, the k=0
     minus-sin slot is invalid (reference: core/basis.py:1108).
+  * ComplexFourier: exp(ikx) amplitudes in FFT wavenumber order,
+    group_shape=1, the Nyquist slot is invalid (reference:
+    core/basis.py:951).
 """
 
 import numpy as np
@@ -249,6 +253,12 @@ def ChebyshevT(coord, size, bounds, **kw):
     return Jacobi(coord, size, bounds, a=-1/2, b=-1/2, **kw)
 
 
+def Legendre(coord, size, bounds, **kw):
+    """Legendre basis (dedalus_tpu/core/basis.py:262; reference:
+    core/basis.py:636)."""
+    return Jacobi(coord, size, bounds, a=0, b=0, **kw)
+
+
 class FourierBase(Basis):
     """Common machinery for periodic Fourier bases."""
 
@@ -329,3 +339,57 @@ class RealFourier(FourierBase):
         rows = np.stack([np.cos(g * theta0), -np.sin(g * theta0)], axis=-1)
         rows[0, 1] = 0.0
         return rows
+
+
+class ComplexFourier(FourierBase):
+    """
+    Complex exponential basis, FFT wavenumber ordering, Nyquist invalid
+    (dedalus_tpu/core/basis.py:410; reference: core/basis.py:951).
+    """
+
+    group_shape = 1
+
+    @property
+    def n_groups(self):
+        return self.size
+
+    @property
+    def wavenumbers_native(self):
+        return np.fft.fftfreq(self.size, d=1.0 / self.size).astype(int)
+
+    def group_wavenumber(self, g):
+        return self.wavenumbers_native[np.asarray(g)] * self.kappa
+
+    def valid_elements(self):
+        valid = np.ones((self.n_groups, 1), dtype=bool)
+        valid[self.size // 2, 0] = False
+        return valid
+
+    def differentiation_blocks(self):
+        k = self.group_wavenumber(np.arange(self.n_groups))
+        return (1j * k).reshape(-1, 1, 1)
+
+    def integration_blocks(self):
+        blocks = np.zeros((self.n_groups, 1, 1), dtype=complex)
+        blocks[0, 0, 0] = self.length
+        return blocks
+
+    def constant_blocks(self):
+        blocks = np.zeros((self.n_groups, 1, 1), dtype=complex)
+        blocks[0, 0, 0] = 1.0
+        return blocks
+
+    def interpolation_rows(self, position):
+        theta0 = self.COV.native_coord(position)
+        k = self.wavenumbers_native
+        rows = np.exp(1j * k * theta0).reshape(-1, 1)
+        rows[self.size // 2] = 0.0
+        return rows
+
+
+def Fourier(coord, size, bounds, dtype=np.float64, **kw):
+    """Dtype-dispatching Fourier factory (dedalus_tpu/core/basis.py:459):
+    ComplexFourier for a complex dtype, else RealFourier."""
+    if np.issubdtype(np.dtype(dtype), np.complexfloating):
+        return ComplexFourier(coord, size, bounds, **kw)
+    return RealFourier(coord, size, bounds, **kw)

@@ -57,5 +57,10 @@ class Domain(metaclass=CachedClass):
                 out.append(b.dealias)
         return tuple(out)
 
+    @property
+    def coeff_dtype_is_complex(self):
+        from .basis import ComplexFourier
+        return any(isinstance(b, ComplexFourier) for b in self.bases)
+
     def __repr__(self):
         return f"Domain({self.bases})"

@@ -153,10 +153,18 @@ class Operand:
         return Multiply(other, self)
 
     def __truediv__(self, other):
-        from .arithmetic import Multiply
+        from .arithmetic import Multiply, Power
         if np.isscalar(other):
             return Multiply(1.0 / other, self)
-        return NotImplemented
+        return Multiply(self, Power(other, -1))
+
+    def __rtruediv__(self, other):
+        from .arithmetic import Multiply, Power
+        return Multiply(other, Power(self, -1))
+
+    def __pow__(self, other):
+        from .arithmetic import Power
+        return Power(self, other)
 
     def __matmul__(self, other):
         from .arithmetic import DotProduct
@@ -209,6 +217,9 @@ class Operand:
     def has(self, *operands):
         return any(self is op for op in operands)
 
+    def replace(self, old, new):
+        return new if self is old else self
+
 
 class Field(Operand):
     """
@@ -222,6 +233,9 @@ class Field(Operand):
         self.tensorsig = tuple(tensorsig)
         self.dtype = np.dtype(dtype or dist.dtype)
         self.domain = Domain(dist, dist.expand_bases(bases))
+        if self.domain.coeff_dtype_is_complex and \
+                not is_complex_dtype(self.dtype):
+            raise ValueError("ComplexFourier bases require a complex dtype.")
         self.scales = dist.remedy_scales(1)
         self.layout = "c"
         self.data = torch.zeros(self.coeff_shape,
@@ -388,3 +402,47 @@ class Field(Operand):
         else:
             data = getattr(rng, distribution)(size=shape)
         self[layout] = scale * data.astype(dtype)
+
+    def low_pass_filter(self, shape=None, scales=None):
+        """Zero the coefficients above a per-axis mode cutoff
+        (dedalus_tpu/core/field.py:679): `shape` gives the cutoffs as mode
+        counts, `scales` as fractions of each axis size. RealFourier
+        counts interleaved coefficients, ComplexFourier keeps |k| <
+        cutoff/2 on both branches. Runs on the field's device."""
+        from .basis import RealFourier, ComplexFourier
+        if shape is None and scales is None:
+            return self
+        coeff_shape = self.domain.coeff_shape
+        if shape is None:
+            scales = self.dist.remedy_scales(scales)
+            shape = [1 if b is None else int(s * n)
+                     for b, s, n in zip(self.domain.bases, scales, coeff_shape)]
+        data = self.require_coeff_space()
+        mask = np.ones(data.shape, dtype=bool)
+        for axis, (basis, cutoff) in enumerate(zip(self.domain.bases, shape)):
+            if basis is None:
+                continue
+            n = coeff_shape[axis]
+            if isinstance(basis, ComplexFourier):
+                k = np.abs(np.fft.fftfreq(n, d=1.0 / n))
+                keep = k < cutoff / 2
+            else:
+                keep = np.arange(n) < cutoff
+            view = [np.newaxis] * data.ndim
+            view[self.tdim + axis] = slice(None)
+            mask = mask & keep[tuple(view)]
+        self.data = data * torch.as_tensor(mask, device=data.device)
+        self._version += 1
+        self._data_epoch += 1
+        return self
+
+    # Problem-layer helpers ---------------------------------------------------
+
+    def frechet_differential(self, variables, perturbations):
+        """Symbolic Frechet differential of this field viewed as an
+        expression (dedalus_tpu/core/field.py:724): the perturbation for
+        a variable, else 0."""
+        for var, pert in zip(variables, perturbations):
+            if self is var:
+                return pert
+        return 0

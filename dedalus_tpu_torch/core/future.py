@@ -10,6 +10,8 @@ Layout protocol: 'c' = full coefficient space (in the node's output bases,
 including Jacobi derivative levels), 'g' = full grid space at dealias scales.
 """
 
+import numpy as np
+
 from .field import Operand, Field, transform_to_coeff, transform_to_grid
 
 
@@ -140,8 +142,38 @@ class Future(Operand):
         return any(isinstance(a, (Field, Future)) and _has(a, operands)
                    for a in self.args)
 
+    def replace(self, old, new):
+        """This expression with `old` (an operand, or every node of a
+        type) replaced by `new`."""
+        if self is old:
+            return new
+        if isinstance(old, type) and isinstance(self, old):
+            return new
+        new_args = [a.replace(old, new) if isinstance(a, (Field, Future))
+                    else a for a in self.args]
+        return self.rebuild(new_args)
+
     def rebuild(self, new_args):
         return type(self)(*new_args)
+
+    def frechet_differential(self, variables, perturbations):
+        """
+        Symbolic derivative d/de [self with vars -> vars + e*perts] at
+        e=0 (dedalus_tpu/core/future.py:215; reference:
+        core/field.py:259): the multilinear rule, one term per operand
+        argument with that argument differentiated and the others kept.
+        Linear single-operand nodes pass the differential through; Add,
+        ScalarMultiply, Power and UnaryGridFunction override.
+        """
+        out = 0
+        for i, arg in enumerate(self.args):
+            if isinstance(arg, (Field, Future)):
+                d_arg = arg.frechet_differential(variables, perturbations)
+                if not (np.isscalar(d_arg) and d_arg == 0):
+                    new_args = list(self.args)
+                    new_args[i] = d_arg
+                    out = out + self.rebuild(new_args)
+        return out
 
     # -------------------------------------------------- matrix construction
 

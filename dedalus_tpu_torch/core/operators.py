@@ -124,6 +124,8 @@ def assemble_group_matrix(terms, operand_domain, tshape_in, tshape_out,
 def apply_axis_blocks(data, blocks, axis):
     """Apply per-group blocks (G, so, si) along an axis of size G*si."""
     blocks = match_precision(blocks, data)
+    if blocks.is_complex() and not data.is_complex():
+        data = data.to(blocks.dtype)
     G, so, si = blocks.shape
     moved = torch.movedim(data, axis, -1)
     moved = moved.reshape(moved.shape[:-1] + (G, si))
@@ -896,3 +898,25 @@ class UnaryGridFunction(Future):
 
     def ev_impl(self, ctx):
         return self._torch_func(ev(self.operand, ctx, "g"))
+
+    def frechet_differential(self, variables, perturbations):
+        """f(u) -> f'(u) du for the ufuncs with a derivative rule
+        (dedalus_tpu/core/operators.py:1531)."""
+        deriv_map = {
+            np.exp: lambda x: UnaryGridFunction(np.exp, x),
+            np.sin: lambda x: UnaryGridFunction(np.cos, x),
+            np.cos: lambda x: -1 * UnaryGridFunction(np.sin, x),
+            np.sinh: lambda x: UnaryGridFunction(np.cosh, x),
+            np.cosh: lambda x: UnaryGridFunction(np.sinh, x),
+            np.tanh: lambda x: 1 - UnaryGridFunction(np.tanh, x)**2,
+            np.log: lambda x: x**(-1),
+            np.sqrt: lambda x: (1 / 2) * x**(-1 / 2),
+        }
+        op = self.operand
+        d_op = op.frechet_differential(variables, perturbations)
+        if np.isscalar(d_op) and d_op == 0:
+            return 0
+        if self.func not in deriv_map:
+            raise NotImplementedError(
+                f"No derivative rule for {self.func.__name__}")
+        return deriv_map[self.func](op) * d_op

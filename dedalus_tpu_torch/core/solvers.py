@@ -1,6 +1,11 @@
 """
-Solvers (counterpart of dedalus_tpu/core/solvers.py: the initial value
-solver on the dense and banded pencil paths, and its run loop).
+Solvers (counterpart of dedalus_tpu/core/solvers.py):
+
+  InitialValueSolver           IMEX timestepping and its run loop
+  LinearBoundaryValueSolver    batched pencil solve of L.X = F
+  NonlinearBoundaryValueSolver Newton-Kantorovich iteration
+  EigenvalueSolver             dense/sparse generalized eigensolves per
+                               pencil, on the host with scipy
 
 The solver holds the state as ONE device tensor X of shape (G, S) (all
 pencils batched); fields are synchronized at step boundaries so user code
@@ -12,18 +17,22 @@ import logging
 import time as time_mod
 
 import numpy as np
+import scipy.linalg
+import scipy.sparse as sps
 import torch
 
 from .subsystems import (PencilLayout, build_subproblems, MatrixStructure,
                          build_banded_arrays, gather_state, scatter_state,
                          row_valid_masks, merge_conditional_equations,
-                         state_key, PatternAccumulator, compute_group_closure)
+                         state_key, PatternAccumulator, compute_group_closure,
+                         assemble_group_coos)
 from .batched_assembly import batched_system_coos
 from .future import EvalContext, ev
 from . import timesteppers as timesteppers_mod
 from ..libraries import matsolvers, pencilops
-from ..tools.array import torch_dtype
+from ..tools.array import torch_dtype, to_numpy, scipy_sparse_eigs
 from ..tools.config import config
+from ..tools.general import is_complex_dtype
 
 logger = logging.getLogger(__name__)
 
@@ -46,11 +55,12 @@ class SolverBase:
     (reference: core/solvers.py:31 SolverBase)."""
 
     matrices = ("L",)
+    lazy_ok = False   # EVP: per-group on-demand assembly at large sizes
 
     def __init__(self, problem, matsolver=None):
         self.problem = problem
         self.dist = problem.dist
-        self.variables = problem.variables
+        self.variables = self.matrix_variables(problem)
         if matsolver is None:
             matsolver = config["linear algebra"].get("MATRIX_SOLVER", "auto")
         self.matsolver = matsolver
@@ -77,13 +87,32 @@ class SolverBase:
         """
         names = self.matrices
         G, S = self.pencil_shape
+        dense_bytes = G * S * S * self.pencil_dtype.itemsize
+        self._lazy = False
+        self._batched = None
+        if self.lazy_ok and dense_bytes > int(config["linear algebra"].get(
+                "EVP_LAZY_BYTES", str(1 << 28))):
+            # an EVP at scale: no (G, S, S) store at all; solve_dense and
+            # solve_sparse assemble the group they are asked for
+            # (dedalus_tpu/core/solvers.py:136-156)
+            logger.info(f"EVP pencil system: lazy per-group assembly "
+                        f"(G={G}, S={S}; dense store would be "
+                        f"{dense_bytes / 1e9:.2f} GB)")
+            self._lazy = True
+            self._matrices = None
+            self.structure = None
+            self.ops = None
+            return
         t0 = time_mod.perf_counter()
         batched = batched_system_coos(
             self.layout, self.equations, self.variables, names,
             subproblems=self.subproblems, partial=True)
         self.build_seconds["host_assembly"] = time_mod.perf_counter() - t0
         self.build_seconds["structure"] = 0.0
-        dense_bytes = G * S * S * self.pencil_dtype.itemsize
+        if self.lazy_ok:
+            # the shared-pattern store scatters straight to each group's
+            # CSR in _group_csr
+            self._batched = batched
         cutoff = int(config["linear algebra"].get("BANDED_CUTOFF_BYTES",
                                                   str(1 << 30)))
         self.structure = None
@@ -187,8 +216,10 @@ class SolverBase:
         self.build_seconds["structure"] = time_mod.perf_counter() - t0
         t0 = time_mod.perf_counter()
         try:
+            host_dtype = (np.complex128 if is_complex_dtype(self.pencil_dtype)
+                          else np.float64)
             matrices = build_banded_arrays(
-                coo_store, structure, names, np.float64,
+                coo_store, structure, names, host_dtype,
                 drop_tol=max(tol_abs, row_frac * (scale or 1.0)),
                 closures=closures)
         except ValueError as exc:
@@ -209,11 +240,47 @@ class SolverBase:
         return (self.layout.n_groups, S)
 
     @property
+    def subproblems_by_group(self):
+        """Subproblems keyed by their group tuple
+        (dedalus_tpu/core/solvers.py:442)."""
+        return {sp.group: sp for sp in self.subproblems}
+
+    def matrix_variables(self, problem):
+        """The variables the pencil matrices act on (an NLBVP's are its
+        perturbations)."""
+        return problem.variables
+
+    @property
+    def state(self):
+        return self.problem.variables
+
+    @property
     def pencil_dtype(self):
-        """Device working dtype: float32 when every variable is float32."""
-        bits32 = all(np.dtype(v.dtype) == np.dtype(np.float32)
+        """Device working dtype: complex when a variable is complex,
+        32-bit when every variable is 32-bit."""
+        cplx = any(is_complex_dtype(v.dtype) for v in self.variables)
+        bits32 = all(np.dtype(v.dtype) in (np.dtype(np.float32),
+                                           np.dtype(np.complex64))
                      for v in self.variables)
-        return np.dtype(np.float32) if bits32 else np.dtype(np.float64)
+        if cplx:
+            return np.dtype(np.complex64 if bits32 else np.complex128)
+        return np.dtype(np.float32 if bits32 else np.float64)
+
+    @property
+    def real_dtype(self):
+        low = self.pencil_dtype in (np.dtype(np.float32),
+                                    np.dtype(np.complex64))
+        return np.dtype(np.float32 if low else np.float64)
+
+    def _row_mask(self):
+        """The valid-row mask on the device at the real working dtype,
+        uploaded once."""
+        mask = self.__dict__.get("_row_mask_t")
+        if mask is None:
+            mask = self._row_mask_t = torch.as_tensor(
+                self.valid_row_mask, dtype=torch_dtype(self.real_dtype),
+                device=self.dist.device)
+        return mask
 
     # ---------------------------------------------------------------- fields
 
@@ -221,6 +288,15 @@ class SolverBase:
         fields = fields or self.variables
         arrays = {state_key(v): v.coeff_data() for v in fields}
         return gather_state(self.layout, fields, arrays)
+
+    def scatter_fields(self, X):
+        """Eager scatter of a (G, S) state into the variables' coefficient
+        data; counts as a user mutation, so a solver sharing the fields
+        gathers this data again."""
+        arrays = scatter_state(self.layout, self.variables, X)
+        for v in self.variables:
+            v.preset_coeff(arrays[state_key(v)])
+            v.mark_modified()
 
     def defer_scatter(self, X):
         """
@@ -251,41 +327,48 @@ class SolverBase:
 
     # ------------------------------------------------------------------ RHS
 
-    def build_rhs_evaluator(self, key="F", time_field=None):
+    def build_rhs_evaluator(self, key="F", time_field=None, get_expr=None):
         """
         Build `eval_F(X, t=None) -> (G, S)` evaluating the per-equation
-        `key` expressions on the state X. Non-variable fields feeding the
-        RHS (parameters, forcings) are read at evaluation time, so user
-        updates to them take effect on the next step.
+        expressions selected by `get_expr` (default: the member's `key`
+        entry) on the state X; X=None reads every field's own data (an
+        NLBVP residual). Non-variable fields feeding the RHS (parameters,
+        forcings) are read at evaluation time, so user updates to them
+        take effect on the next evaluation.
         """
+        if get_expr is None:
+            get_expr = lambda member: member.get(key)  # noqa: E731
         layout = self.layout
         variables = self.variables
         equations = self.equations
         dim = self.dist.dim
         device = self.dist.device
         dtype = torch_dtype(self.pencil_dtype)
+        real = torch_dtype(self.real_dtype)
         # per-block member selection masks for conditioned equations
         groups = list(layout.groups())
         member_masks = [
             [None if cond is None
              else torch.as_tensor([float(cond(g)) for g in groups],
-                                  dtype=dtype, device=device)[:, None]
+                                  dtype=real, device=device)[:, None]
              for _, cond in eq["members"]]
             for eq in equations]
 
         def eval_F(X, t=None):
-            arrays = scatter_state(layout, variables, X)
-            subs = {var: arrays[state_key(var)] for var in variables}
+            subs = {}
+            if X is not None:
+                arrays = scatter_state(layout, variables, X)
+                subs = {var: arrays[state_key(var)] for var in variables}
             if time_field is not None:
                 subs[time_field] = torch.full((1,) * dim, float(t or 0.0),
-                                              dtype=dtype, device=device)
+                                              dtype=real, device=device)
             ctx = EvalContext(subs)
             parts = []
             for eq, masks in zip(equations, member_masks):
                 size = layout.slot_size(eq["domain"], eq["tensorsig"])
                 total = None
                 for (member, cond), mask in zip(eq["members"], masks):
-                    expr = member.get(key)
+                    expr = get_expr(member)
                     if expr is None:
                         continue
                     data = ev(expr, ctx, "c")
@@ -332,6 +415,16 @@ class InitialValueSolver(SolverBase):
         self.evaluator = Evaluator(self)
         self.dt = None
         self._setup_time = time_mod.time() - init_t0
+
+    def _install_carried(self):
+        """Put carried M/L (tools/carry.py) on the device and drop the
+        timestepper's factorization, so the next step factors them."""
+        self.M_mat = self.ops.to_device(self._matrices["M"],
+                                        self.pencil_dtype)
+        self.L_mat = self.ops.to_device(self._matrices["L"],
+                                        self.pencil_dtype)
+        self.timestepper._lhs_key = None
+        self.timestepper._lhs_aux = None
 
     @property
     def proceed(self):
@@ -433,3 +526,229 @@ class InitialValueSolver(SolverBase):
             logger.info(f"Speed: {rate:.2e} mode-stages/sec")
         else:
             logger.info(f"Total time: {log_time - self.init_time:{format}} sec")
+
+
+class LinearBoundaryValueSolver(SolverBase):
+    """LBVP solver (dedalus_tpu/core/solvers.py:1400; reference:
+    core/solvers.py:324): L is factored once at build time; each `solve`
+    evaluates F, masks the invalid rows, solves and scatters, all queued
+    on the device without waiting for it."""
+
+    matrices = ("L",)
+
+    def __init__(self, problem, matsolver=None):
+        super().__init__(problem, matsolver=matsolver)
+        self._factor_L()
+        self.eval_F = self.build_rhs_evaluator("F")
+        self.iteration = 0
+
+    def _factor_L(self):
+        self.L_mat = self.ops.to_device(self._matrices["L"],
+                                        self.pencil_dtype)
+        self._aux = self.ops.factor(self.L_mat)
+
+    def _install_carried(self):
+        """Factor a carried L (tools/carry.py)."""
+        self._factor_L()
+
+    def solve(self):
+        """Solve L.X = F with the current NCC/RHS field data
+        (reference: core/solvers.py:369)."""
+        F = self.eval_F(self.gather_fields()) * self._row_mask()
+        self.scatter_fields(self.ops.solve(self._aux, F))
+        self.iteration += 1
+        return self.state
+
+
+class NonlinearBoundaryValueSolver(SolverBase):
+    """Newton-Kantorovich NLBVP solver (dedalus_tpu/core/solvers.py:1436;
+    reference: core/solvers.py:418). The pencil matrices act on the
+    perturbations; each Newton iteration assembles the Jacobian around
+    the current state on the host (its NCCs read the state), then factors
+    and solves on the device."""
+
+    matrices = ("L",)
+
+    def __init__(self, problem, matsolver=None):
+        super().__init__(problem, matsolver=matsolver)
+        self.iteration = 0
+        self._last_perturbation = None
+        # residual expressions converted to their equation blocks' domains
+        self._residual_exprs = {}
+        for block in self.equations:
+            for member, cond in block["members"]:
+                if member.get("residual") is not None:
+                    self._residual_exprs[id(member)] = problem._wrap(
+                        member["residual"], block["domain"])
+        self.eval_R = self.build_rhs_evaluator(
+            get_expr=lambda member: self._residual_exprs.get(id(member)))
+
+    def matrix_variables(self, problem):
+        return problem.perturbations
+
+    def _eval_residual(self):
+        """The masked (G, S) residual G(X) of the current state."""
+        return self.eval_R(None) * self._row_mask()
+
+    def newton_iteration(self, damping=1.0):
+        """One Newton step: rebuild the Jacobian around the current state,
+        solve dG.dX = -G, update the variables (reference:
+        core/solvers.py:470)."""
+        self._build_pencil_system()
+        L = self.ops.to_device(self._matrices["L"], self.pencil_dtype)
+        aux = self.ops.factor(L)
+        dX = self.ops.solve(aux, -self._eval_residual())
+        self._last_perturbation = dX
+        arrays = scatter_state(self.layout, self.variables, dX)
+        for var, pert in zip(self.problem.variables, self.variables):
+            var.preset_coeff(var.coeff_data()
+                             + damping * arrays[state_key(pert)])
+            var.mark_modified()
+        self.iteration += 1
+
+    def perturbation_norm(self, order=2):
+        """Norm of the last Newton update dX, the convergence metric: one
+        read from the device."""
+        if self._last_perturbation is None:
+            return np.inf
+        return _norm(to_numpy(self._last_perturbation), order)
+
+    def residual_norm(self, order=2):
+        return _norm(to_numpy(self._eval_residual()), order)
+
+
+def _norm(data, order):
+    if order == np.inf:
+        return np.max(np.abs(data))
+    return np.sum(np.abs(data) ** order) ** (1.0 / order)
+
+
+class EigenvalueSolver(SolverBase):
+    """EVP solver: lam*M.X + L.X = 0 (dedalus_tpu/core/solvers.py:1512;
+    reference: core/solvers.py:134). The pencil matrices stay on the
+    host: each eigensolve is one group's generalized problem in scipy,
+    and `set_state` scatters a mode into the fields on the solver's
+    device. Above [linear algebra] EVP_LAZY_BYTES of dense store, a group
+    is assembled only when asked for."""
+
+    matrices = ("M", "L")
+    lazy_ok = True
+
+    def __init__(self, problem, matsolver=None):
+        super().__init__(problem, matsolver=matsolver)
+        self.eigenvalues = None
+        self.eigenvectors = None
+        self.eigenvalue_subproblem = None
+
+    def _install_carried(self):
+        """Read the carried host matrices (tools/carry.py) from now on."""
+        self._batched = None
+        self._lazy = False
+        self._lazy_cache = None
+
+    def _group_csr(self, subproblem):
+        """{name: scipy CSR} of one group's pencil matrices: assembled on
+        demand in lazy mode, scattered from the shared-pattern store, or
+        densified from a carried dense or band store."""
+        names = self.matrices
+        G, S = self.pencil_shape
+        g = subproblem.index
+        if self._lazy:
+            cache = getattr(self, "_lazy_cache", None)
+            if cache is not None and cache[0] == g:
+                return cache[1]
+            coos = assemble_group_coos(subproblem, self.equations,
+                                       self.variables, names)
+            out = {name: sps.csr_matrix((vals, (rows, cols)), shape=(S, S))
+                   for name, (rows, cols, vals) in coos.items()}
+            self._lazy_cache = (g, out)
+            return out
+        if self._batched is not None:
+            pr, pc, vals, row_valid, col_valid = self._batched
+            out = {name: sps.csr_matrix((vals[name][g], (pr, pc)),
+                                        shape=(S, S))
+                   for name in names}
+            inv_rows = np.flatnonzero(~row_valid[g])
+            inv_cols = np.flatnonzero(~col_valid[g])
+            if len(inv_rows):
+                out[names[-1]] = out[names[-1]] + sps.csr_matrix(
+                    (np.ones(len(inv_rows)), (inv_rows, inv_cols)),
+                    shape=(S, S))
+            return out
+        return {name: sps.csr_matrix(
+            self.ops.densify_host(self._matrices[name], g))
+            for name in names}
+
+    def _rebuild(self):
+        """Reassemble M/L around the current NCC field data (parameter
+        continuation)."""
+        if self._lazy:
+            self._lazy_cache = None
+        else:
+            self._build_pencil_system()
+
+    def solve_dense(self, subproblem, left=False, normalize_left=True,
+                    rebuild_matrices=False, **kw):
+        """Dense generalized eigensolve of one pencil (reference:
+        core/solvers.py:180 solve_dense); infinite eigenvalues (closure
+        and tau rows) are dropped. With `left`, the left eigenvectors are
+        normalized against -M when `normalize_left`."""
+        if rebuild_matrices:
+            self._rebuild()
+        mats = self._group_csr(subproblem)
+        L = mats["L"].toarray()
+        M = mats["M"].toarray()
+        out = scipy.linalg.eig(L, b=-M, left=left, **kw)
+        if left:
+            evals, evecs_left, evecs = out
+        else:
+            evals, evecs = out
+        finite = np.isfinite(evals)
+        self.eigenvalues = evals[finite]
+        self.eigenvectors = evecs[:, finite]
+        if left:
+            self.left_eigenvectors = evecs_left[:, finite]
+            if normalize_left:
+                norms = np.einsum("ij,ij->j", np.conj(self.left_eigenvectors),
+                                  -M @ self.eigenvectors)
+                safe = np.where(np.abs(norms) > 0, norms, 1.0)
+                self.left_eigenvectors = \
+                    self.left_eigenvectors / np.conj(safe)
+        self.eigenvalue_subproblem = subproblem
+        return self.eigenvalues
+
+    def solve_sparse(self, subproblem, N, target, left=False,
+                     rebuild_matrices=False, **kw):
+        """Sparse shift-invert eigensolve of one pencil around `target`
+        (reference: core/solvers.py:225 solve_sparse)."""
+        if rebuild_matrices:
+            self._rebuild()
+        mats = self._group_csr(subproblem)
+        out = scipy_sparse_eigs(A=mats["L"], B=-mats["M"], N=N,
+                                target=target, left=left, **kw)
+        if left:
+            self.eigenvalues, self.eigenvectors, self.left_eigenvalues, \
+                self.left_eigenvectors = out
+        else:
+            self.eigenvalues, self.eigenvectors = out
+        self.eigenvalue_subproblem = subproblem
+        return self.eigenvalues
+
+    def set_state(self, index, subproblem=None):
+        """Load eigenvector `index` into the state fields on the solver's
+        device (reference: core/solvers.py:296 set_state); real fields
+        take the real part."""
+        subproblem = subproblem or self.eigenvalue_subproblem
+        G, S = self.pencil_shape
+        X = torch.zeros((G, S), dtype=torch.complex128,
+                        device=self.dist.device)
+        X[subproblem.index] = torch.as_tensor(
+            self.eigenvectors[:, index], dtype=torch.complex128).to(
+                self.dist.device)
+        arrays = scatter_state(self.layout, self.variables, X)
+        for var in self.variables:
+            data = arrays[state_key(var)]
+            if not is_complex_dtype(var.dtype):
+                data = data.real
+            var.preset_coeff(data.to(torch_dtype(var.dtype)).contiguous())
+            var.mark_modified()

@@ -388,6 +388,81 @@ def merge_conditional_equations(equations, dist, layout):
     return blocks
 
 
+def active_member(block, group):
+    """The block's active equation for `group` (None if none active)."""
+    actives = [eq for eq, cond in block["members"]
+               if cond is None or cond(group)]
+    if len(actives) > 1:
+        raise ValueError(
+            f"Multiple conditioned equations active for group {group}: "
+            f"{[eq.get('LHS_str') for eq in actives]}")
+    return actives[0] if actives else None
+
+
+def block_valid_mask(layout, eq, group):
+    """Flat row validity of one equation block at one group: the active
+    member's mask, or all-invalid when no member's condition holds."""
+    if active_member(eq, group) is None:
+        size = layout.slot_size(eq["domain"], eq["tensorsig"])
+        return np.zeros(size, dtype=bool)
+    return layout.valid_mask(eq["domain"], eq["tensorsig"], group).ravel()
+
+
+def assemble_group_coos(subproblem, equations, variables, names):
+    """
+    All matrices of one pencil group in COO form, duplicates summed, with
+    invalid rows and columns dropped and the enumeration-order identity
+    closure of the invalid slots on the last name (the dense path's
+    convention): the per-group walk of an eigenvalue problem too large
+    for the batched store (dedalus_tpu/core/subsystems.py:498-571).
+    Returns {name: (rows, cols, vals)}.
+    """
+    from .operators import operand_expression_matrices
+    layout, group = subproblem.layout, subproblem.group
+    var_offsets, eq_sizes, S = _system_sizes(layout, equations, variables)
+    col_valid = np.concatenate([
+        layout.valid_mask(v.domain, v.tensorsig, group).ravel()
+        for v in variables])
+    row_valid = np.concatenate([block_valid_mask(layout, eq, group)
+                                for eq in equations])
+    if col_valid.sum() != row_valid.sum():
+        raise ValueError(
+            f"Invalid row/column mismatch in group {group}: "
+            f"{row_valid.sum()} valid rows vs {col_valid.sum()} valid "
+            "columns.")
+    out = {}
+    for name in names:
+        rows_l, cols_l, vals_l = [], [], []
+        row0 = 0
+        for eq, esize in zip(equations, eq_sizes):
+            active = active_member(eq, group)
+            expr = active.get(name) if active is not None else None
+            if expr is not None and not (np.isscalar(expr) and expr == 0):
+                mats = operand_expression_matrices(expr, subproblem,
+                                                   variables)
+                for vi, var in enumerate(variables):
+                    if var in mats:
+                        coo = sp.coo_matrix(mats[var])
+                        rows_l.append(coo.row + row0)
+                        cols_l.append(coo.col + var_offsets[vi])
+                        vals_l.append(coo.data)
+            row0 += esize
+        rows = np.concatenate(rows_l) if rows_l else np.zeros(0, dtype=int)
+        cols = np.concatenate(cols_l) if cols_l else np.zeros(0, dtype=int)
+        vals = np.concatenate(vals_l) if vals_l else np.zeros(0)
+        keep = row_valid[rows] & col_valid[cols]
+        rows, cols, vals = rows[keep], cols[keep], vals[keep]
+        if name == names[-1]:
+            rows = np.concatenate([rows, np.flatnonzero(~row_valid)])
+            cols = np.concatenate([cols, np.flatnonzero(~col_valid)])
+            vals = np.concatenate([vals, np.ones((~row_valid).sum())])
+        mat = sp.csr_matrix((vals, (rows, cols)), shape=(S, S))
+        mat.sum_duplicates()
+        coo = mat.tocoo()
+        out[name] = (coo.row, coo.col, coo.data)
+    return out
+
+
 def _system_sizes(layout, equations, variables):
     var_sizes = [layout.slot_size(v.domain, v.tensorsig) for v in variables]
     var_offsets = np.concatenate([[0], np.cumsum(var_sizes)])

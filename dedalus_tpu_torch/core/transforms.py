@@ -1,6 +1,7 @@
 """
 Spectral transform plans (counterpart of dedalus_tpu/core/transforms.py:
-RealFourierFFT, FastChebyshevTransform and the JacobiMMT fallback).
+RealFourierFFT, ComplexFourierFFT, FastChebyshevTransform and the
+JacobiMMT fallback).
 
 Each plan converts one axis of an N-d tensor between coefficient and grid
 representations. Plans are registered per (basis class, library name) like
@@ -100,8 +101,12 @@ def _dct2(x):
     """
     Unnormalized DCT-II along the last axis:
     y_n = 2 sum_j x_j cos(pi n (2j+1) / (2N)), via Makhoul's single
-    length-N FFT of the even/odd reordering (real input).
+    length-N FFT of the even/odd reordering. Makhoul's identity takes
+    the real part, so complex input is transformed as its real and
+    imaginary parts (dedalus_tpu/core/transforms.py:125-128).
     """
+    if x.is_complex():
+        return torch.complex(_dct2(x.real), _dct2(x.imag))
     N = x.shape[-1]
     cdt = _complex_dtype(x.dtype)
     v = torch.cat([x[..., 0::2], torch.flip(x[..., 1::2], dims=(-1,))],
@@ -116,7 +121,10 @@ def _idct2(y):
     Inverse of _dct2 (up to the factor 2N): x_j such that _dct2(x) = y;
     equivalently a DCT-III evaluation
     x_j = y_0/(2N) + (1/N) sum_{n>=1} y_n cos(pi n (2j+1)/(2N)).
+    Complex input goes as its real and imaginary parts, as in _dct2.
     """
+    if y.is_complex():
+        return torch.complex(_idct2(y.real), _idct2(y.imag))
     N = y.shape[-1]
     cdt = _complex_dtype(y.dtype)
     phase = _dct_phase(N, 1, cdt, y.device) / 2
@@ -269,4 +277,32 @@ class RealFourierFFT(TransformPlan):
         # pad spectrum to the grid's rfft length
         F = zeropad(F, [(0, 0)] * (F.ndim - 1) + [(0, Ng // 2 + 1 - K)])
         out = torch.fft.irfft(F * Ng, n=Ng, dim=-1)
+        return torch.movedim(out, -1, axis)
+
+
+@register_transform("ComplexFourier", "fft")
+class ComplexFourierFFT(TransformPlan):
+    """
+    Complex Fourier fast path via torch.fft.fft/ifft (counterpart of
+    dedalus_tpu/core/transforms.py:377; reference: core/transforms.py:271).
+    Coefficients in FFT wavenumber order; the Nyquist slot N/2 is zeroed.
+    """
+
+    def forward(self, gdata, axis):
+        N, Ng = self.N, self.Ng
+        data = torch.movedim(gdata, axis, -1)
+        F = torch.fft.fft(data, dim=-1) / Ng
+        K = N // 2
+        # keep modes [0..K-1] and [-K+1..-1], zero the Nyquist slot
+        out = torch.cat([F[..., :K], torch.zeros_like(F[..., :1]),
+                         F[..., Ng - K + 1:]], dim=-1)
+        return torch.movedim(out, -1, axis)
+
+    def backward(self, cdata, axis):
+        N, Ng = self.N, self.Ng
+        data = torch.movedim(cdata, axis, -1)
+        K = N // 2
+        mid = data.new_zeros(data.shape[:-1] + (Ng - N + 1,))
+        F = torch.cat([data[..., :K], mid, data[..., K + 1:]], dim=-1)
+        out = torch.fft.ifft(F * Ng, dim=-1)
         return torch.movedim(out, -1, axis)

@@ -4,9 +4,13 @@ dedalus_tpu/extras/bench_problems.py): the 1-D forced nonlinear heat IVP,
 the progression's KdV-Burgers and shear-flow IVPs (the JAX package's
 benchmarks/progression.py build_kdv/build_shear), the 2-D Rayleigh-Benard
 flagship configuration (reference:
-examples/ivp_2d_rayleigh_benard/rayleigh_benard.py) and the small 2-D
-nonlinear heat IVP with tau lines. Each builds on `device` (default
-`cuda`; pass "cpu" to run on the host).
+examples/ivp_2d_rayleigh_benard/rayleigh_benard.py), the small 2-D
+nonlinear heat IVP with tau lines, and the boundary and eigenvalue
+problems of the JAX package's examples and tests: the Poisson LBVP
+(examples/poisson.py), the Bratu and sin-Jacobi NLBVPs, the
+Rayleigh-Benard onset EVP (examples/rayleigh_benard_evp.py) and the
+waves-on-a-string EVP (examples/waves_on_a_string.py). Each builds on
+`device` (default `cuda`; pass "cpu" to run on the host).
 """
 
 import numpy as np
@@ -147,3 +151,174 @@ def build_tau_ivp(Nx=16, Nz=8, cadence=100, matsolver=None,
     x, z = dist.local_grids(xb, zb)
     u["g"] = np.sin(np.pi * z) * (1 + 0.3 * np.cos(np.pi * x / 2))
     return solver, u, x, z
+
+
+def build_poisson_solver(Nx, Ny, matsolver=None, device=None):
+    """2-D Poisson LBVP of examples/poisson.py (reference:
+    examples/lbvp_2d_poisson): lap(u) = f, u(y=0) = g, dy(u)(y=Ly) = h on
+    RealFourier(Nx) x ChebyshevT(Ny) over (0, 2 pi) x (0, pi), f random
+    from seed 40 low-passed to (Nx/4, Ny/4) modes, g = 0.025 sin(8x),
+    h = 0. Returns (solver, fields) with fields {u, tau_1, tau_2, f, g,
+    h}; the solver is built, not yet solved."""
+    import dedalus_tpu_torch.public as d3
+    Lx, Ly = 2 * np.pi, np.pi
+    coords = d3.CartesianCoordinates("x", "y")
+    dist = d3.Distributor(coords, dtype=np.float64, device=device)
+    xbasis = d3.RealFourier(coords["x"], size=Nx, bounds=(0, Lx))
+    ybasis = d3.ChebyshevT(coords["y"], size=Ny, bounds=(0, Ly))
+    u = dist.Field(name="u", bases=(xbasis, ybasis))
+    tau_1 = dist.Field(name="tau_1", bases=xbasis)
+    tau_2 = dist.Field(name="tau_2", bases=xbasis)
+    x, y = dist.local_grids(xbasis, ybasis)
+    f = dist.Field(name="f", bases=(xbasis, ybasis))
+    g = dist.Field(name="g", bases=xbasis)
+    h = dist.Field(name="h", bases=xbasis)
+    f.fill_random("g", seed=40)
+    f.low_pass_filter(shape=(Nx // 4, Ny // 4))
+    g["g"] = np.sin(8 * x) * 0.025
+    h["g"] = 0
+    dy = lambda A: d3.Differentiate(A, coords["y"])  # noqa: E731
+    lift_basis = ybasis.derivative_basis(2)
+    lift = lambda A, n: d3.Lift(A, lift_basis, n)  # noqa: E731
+    problem = d3.LBVP([u, tau_1, tau_2], namespace=locals())
+    problem.add_equation("lap(u) + lift(tau_1,-1) + lift(tau_2,-2) = f")
+    problem.add_equation("u(y=0) = g")
+    problem.add_equation("dy(u)(y=Ly) = h")
+    kw = {"matsolver": matsolver} if matsolver else {}
+    solver = problem.build_solver(**kw)
+    fields = {"u": u, "tau_1": tau_1, "tau_2": tau_2, "f": f, "g": g,
+              "h": h}
+    return solver, fields
+
+
+def bratu_theta(lam):
+    """theta of the lower-branch Bratu solution: the fixed point of
+    theta = sqrt(2 lam) cosh(theta / 4) (a contraction there for lam
+    below the fold at ~3.51)."""
+    theta = 0.0
+    for _ in range(200):
+        theta = np.sqrt(2 * lam) * np.cosh(theta / 4)
+    return theta
+
+
+def bratu_exact(x, lam=1.0):
+    """The closed-form lower-branch solution of u'' + lam e^u = 0,
+    u(0) = u(1) = 0: u = -2 ln[cosh((x - 1/2) theta / 2) / cosh(theta / 4)]."""
+    theta = bratu_theta(lam)
+    return -2 * np.log(np.cosh((x - 0.5) * theta / 2) / np.cosh(theta / 4))
+
+
+def build_bratu_solver(N, lam=1.0, device=None):
+    """The Bratu NLBVP u'' + lam exp(u) = 0 with u(0) = u(1) = 0 on
+    ChebyshevT(N) over (0, 1), two taus lifted to the second derivative
+    basis, from u = 0. Returns (solver, u, x) with x the grid."""
+    import dedalus_tpu_torch.public as d3
+    coords = d3.CartesianCoordinates("x")
+    dist = d3.Distributor(coords, dtype=np.float64, device=device)
+    xb = d3.ChebyshevT(coords["x"], size=N, bounds=(0, 1))
+    x, = dist.local_grids(xb)
+    u = dist.Field(name="u", bases=xb)
+    t1 = dist.Field(name="t1")
+    t2 = dist.Field(name="t2")
+    dx = lambda A: d3.Differentiate(A, coords["x"])  # noqa: E731
+    lift = lambda A, n: d3.Lift(A, xb.derivative_basis(2), n)  # noqa: E731
+    problem = d3.NLBVP([u, t1, t2], namespace=locals())
+    problem.add_equation(
+        "dx(dx(u)) + lam*np.exp(u) + lift(t1,-1) + lift(t2,-2) = 0")
+    problem.add_equation("u(x=0) = 0")
+    problem.add_equation("u(x=1) = 0")
+    return problem.build_solver(), u, x
+
+
+def build_sin_jacobi_solver(N, dealias=1, device=None):
+    """The NLBVP of the JAX package's tests/test_nlbvp.py:12: dx(u)^2 +
+    u^2 = 1, u(0) = 1 on ChebyshevT(N) over (0, 1), from u = 1 - x/2; its
+    solution is cos(x). Returns (solver, u, x)."""
+    import dedalus_tpu_torch.public as d3
+    coords = d3.CartesianCoordinates("x")
+    dist = d3.Distributor(coords, dtype=np.float64, device=device)
+    xb = d3.ChebyshevT(coords["x"], size=N, bounds=(0, 1), dealias=dealias)
+    x, = dist.local_grids(xb)
+    u = dist.Field(name="u", bases=xb)
+    tau = dist.Field(name="tau")
+    dx = lambda A: d3.Differentiate(A, coords["x"])  # noqa: E731
+    lift = lambda A: d3.Lift(A, xb.derivative_basis(1), -1)  # noqa: E731
+    problem = d3.NLBVP([u, tau], namespace=locals())
+    problem.add_equation("dx(u)**2 + u**2 + lift(tau) = 1")
+    problem.add_equation("u(x=0) = 1")
+    solver = problem.build_solver()
+    u["g"] = 1 - x / 2
+    return solver, u, x
+
+
+def build_rb_evp(Nz, kx, Ra, Pr=1, device=None):
+    """The no-slip Rayleigh-Benard onset EVP of
+    examples/rayleigh_benard_evp.py's max_growth_rate (reference:
+    examples/evp_1d_rayleigh_benard): complex128, a ComplexFourier(4)
+    carrier whose k=+1 group is the wavenumber kx, ChebyshevT(Nz) over
+    (0, 1), dt -> -1j*omega. Returns (solver, fields); the growth rates
+    are the imaginary parts of omega of group (1, None)."""
+    import dedalus_tpu_torch.public as d3
+    Lz, Nx = 1, 4
+    Lx = 2 * np.pi / kx
+    coords = d3.CartesianCoordinates("x", "z")
+    dist = d3.Distributor(coords, dtype=np.complex128, device=device)
+    xbasis = d3.ComplexFourier(coords["x"], size=Nx, bounds=(0, Lx))
+    zbasis = d3.ChebyshevT(coords["z"], size=Nz, bounds=(0, Lz))
+    omega = dist.Field(name="omega")
+    p = dist.Field(name="p", bases=(xbasis, zbasis))
+    b = dist.Field(name="b", bases=(xbasis, zbasis))
+    u = dist.VectorField(coords, name="u", bases=(xbasis, zbasis))
+    tau_p = dist.Field(name="tau_p")
+    tau_b1 = dist.Field(name="tau_b1", bases=xbasis)
+    tau_b2 = dist.Field(name="tau_b2", bases=xbasis)
+    tau_u1 = dist.VectorField(coords, name="tau_u1", bases=xbasis)
+    tau_u2 = dist.VectorField(coords, name="tau_u2", bases=xbasis)
+    kappa = (Ra * Pr) ** (-1 / 2)
+    nu = (Ra / Pr) ** (-1 / 2)
+    ex, ez = coords.unit_vector_fields(dist)
+    lift_basis = zbasis.derivative_basis(1)
+    lift = lambda A: d3.Lift(A, lift_basis, -1)  # noqa: E731
+    grad_u = d3.grad(u) + ez * lift(tau_u1)
+    grad_b = d3.grad(b) + ez * lift(tau_b1)
+    dt = lambda A: -1j * omega * A  # noqa: E731
+    problem = d3.EVP([p, b, u, tau_p, tau_b1, tau_b2, tau_u1, tau_u2],
+                     eigenvalue=omega, namespace=locals())
+    problem.add_equation("trace(grad_u) + tau_p = 0")
+    problem.add_equation(
+        "dt(b) - kappa*div(grad_b) + lift(tau_b2) - ez@u = 0")
+    problem.add_equation(
+        "dt(u) - nu*div(grad_u) + grad(p) - b*ez + lift(tau_u2) = 0")
+    problem.add_equation("b(z=0) = 0")
+    problem.add_equation("u(z=0) = 0")
+    problem.add_equation("b(z=Lz) = 0")
+    problem.add_equation("u(z=Lz) = 0")
+    problem.add_equation("integ(p) = 0")
+    fields = {"p": p, "b": b, "u": u, "omega": omega}
+    return problem.build_solver(), fields
+
+
+def build_waves_evp(N, device=None):
+    """The clamped-string EVP of examples/waves_on_a_string.py (reference:
+    examples/evp_1d_waves_on_a_string): s*u + dx(dx(u)) = 0, u(0) =
+    u(1) = 0 on Legendre(N), complex128, first-order tau reduction. The
+    eigenvalues are s_n = (n pi)^2. Returns (solver, u)."""
+    import dedalus_tpu_torch.public as d3
+    Lx = 1
+    xcoord = d3.Coordinate("x")
+    dist = d3.Distributor(xcoord, dtype=np.complex128, device=device)
+    xbasis = d3.Legendre(xcoord, size=N, bounds=(0, Lx))
+    u = dist.Field(name="u", bases=xbasis)
+    tau_1 = dist.Field(name="tau_1")
+    tau_2 = dist.Field(name="tau_2")
+    s = dist.Field(name="s")
+    dx = lambda A: d3.Differentiate(A, xcoord)  # noqa: E731
+    lift_basis = xbasis.derivative_basis(1)
+    lift = lambda A: d3.Lift(A, lift_basis, -1)  # noqa: E731
+    ux = dx(u) + lift(tau_1)
+    uxx = dx(ux) + lift(tau_2)
+    problem = d3.EVP([u, tau_1, tau_2], eigenvalue=s, namespace=locals())
+    problem.add_equation("s*u + uxx = 0")
+    problem.add_equation("u(x=0) = 0")
+    problem.add_equation("u(x=Lx) = 0")
+    return problem.build_solver(), u

@@ -2,8 +2,10 @@
 Pencil operators (counterpart of dedalus_tpu/libraries/pencilops.py: DenseOps,
 and BandedOps on the default plan: fused substitution, sequential
 composition, native dtype). Both offer one surface (to_device, matvec,
-matvec_pair, factor_lincomb, solve(aux, rhs, mats)), so every timestepper
-family calls either.
+matvec_pair, factor, factor_lincomb, solve(aux, rhs, mats),
+densify_host), so every solver calls either: the timesteppers factor
+a*M + b*L, a boundary value problem factors L itself, and an eigenvalue
+problem reads its host matrices back per group.
 
 DenseOps keeps (G, S, S) dense matrices; factor and solve delegate to a
 registered batched matsolver (libraries/matsolvers.py).
@@ -55,6 +57,10 @@ class DenseOps:
         """(M @ X, L @ X): the two products, equal to separate calls."""
         return self.matvec(M, X), self.matvec(L, X)
 
+    def factor(self, A):
+        """Factor a matrix already on the device (an LBVP's L)."""
+        return self.solver_cls.factor(A)
+
     def factor_lincomb(self, a, A, b, B):
         """Factor a*A + b*B. The validity-closure identity sits on the
         last matrix (L), so it stays b*I in the combination."""
@@ -62,6 +68,10 @@ class DenseOps:
 
     def solve(self, aux, rhs, mats=None):
         return self.solver_cls.solve(aux, rhs)
+
+    def densify_host(self, host_mat, g):
+        """Group g's dense (S, S) host matrix."""
+        return np.asarray(host_mat[g])
 
 
 class BandedMatrix:
@@ -127,6 +137,10 @@ class BandedOps:
         self._pos_col_t = index(np.argsort(st.col_perm))
         self._pos_row_t = index(np.argsort(st.row_perm))
         self._pin_pos_t = index(st.pinned_positions)
+        # host copies for densify_host
+        self.row_perm = np.asarray(st.row_perm, dtype=np.int64)
+        self.col_perm = np.asarray(st.col_perm, dtype=np.int64)
+        self.pin_pos = np.asarray(st.pinned_positions, dtype=np.int64)
         # static block-gather indices: block[o][ri, ci] reads
         # bands[:, o*q + ci - ri + kl, block_row*q + ri]
         ri = np.arange(self.q)[:, None]
@@ -161,6 +175,27 @@ class BandedOps:
             Vt_dev = torch.as_tensor(np.ascontiguousarray(Vt)).to(
                 device=self.device, dtype=tdt)
         return BandedMatrix(trimmed, Vt_dev, dsel)
+
+    def densify_host(self, host_arrs, g):
+        """Group g's dense (S, S) matrix in the original ordering,
+        rebuilt from a host band store (dedalus_tpu/libraries/
+        pencilops.py:491)."""
+        S = self.n
+        W = host_arrs["bands"].shape[-1]
+        Ap = np.zeros((W, W), dtype=host_arrs["bands"].dtype)
+        bands = host_arrs["bands"][g]
+        dsel = host_arrs.get("dsel", range(self.nd))
+        for i, d in enumerate(dsel):
+            off = d - self.kl
+            rr = np.arange(max(0, -off), min(W, W - off))
+            Ap[rr, rr + off] = bands[i, rr]
+        if self.t:
+            Ap[self.pin_pos, :] += host_arrs["Vt"][g]
+        Ap = Ap[:S, :S]
+        # un-permute: Ap[i, j] = A[row_perm[i], col_perm[j]]
+        A = np.zeros_like(Ap)
+        A[np.ix_(self.row_perm, self.col_perm)] = Ap
+        return A
 
     # ----------------------------------------------------------- device ops
 
@@ -359,24 +394,38 @@ class BandedOps:
         bands[:, dL] += b * lb
         return bands
 
-    def factor_lincomb(self, a, M, b, L):
-        """Factor a*M + b*L without persisting the combined bands: the
-        combination is a transient of the factorization, built per G-chunk
-        (`_pick_chunks`), and the refinement residual uses matvecs of the
-        resident M and L. Each chunk's operators are written into its
-        slice of one store over all G groups, so a solve is one
-        substitution whatever the chunk count; the Woodbury solve runs
-        once over the store. Returns the aux: {"fsub", "Vt", "YbT",
-        "factor_chunks", "ab"}."""
-        G = M.bands.shape[0]
-        C, Gc = self._pick_chunks(G, M.bands.element_size())
-        dM = torch.as_tensor(M.dsel, device=self.device)
-        dL = torch.as_tensor(L.dsel, device=self.device)
+    def factor(self, A):
+        """Factor a matrix already resident in band storage (an LBVP's or
+        a Newton step's L; dedalus_tpu/libraries/pencilops.py:1035): the
+        same chunked factorization into one operator store and the same
+        Woodbury solve as factor_lincomb, with no M to combine. The aux
+        keeps A, so the refinement residual is one matvec of A."""
+        aux = self._factor_store(
+            A.bands.shape[0], A.bands.element_size(),
+            lambda lo, hi: self._expand_bands(A, lo, hi),
+            [A.Vt], [1.0], A.bands.dtype)
+        aux["A"] = A
+        return aux
+
+    def _expand_bands(self, A, lo, hi):
+        """Groups [lo, hi) of a trimmed BandedMatrix as a full-lattice
+        band slab (a factorization transient)."""
+        bands = torch.zeros((hi - lo, self.nd, self.n_pad),
+                            dtype=A.bands.dtype, device=A.bands.device)
+        bands[:, torch.as_tensor(A.dsel, device=self.device)] = \
+            A.bands[lo:hi]
+        return bands
+
+    def _factor_store(self, G, itemsize, slab, Vts, scales, dtype):
+        """Factor the full-lattice slabs `slab(lo, hi)` per G-chunk into
+        one operator store over all G groups, then the Woodbury pieces of
+        the pinned rows sum(scale * Vt). Returns the aux {"fsub",
+        "factor_chunks"[, "Vt", "YbT"]}."""
+        C, Gc = self._pick_chunks(G, itemsize)
         fsub = {}
         for i in range(C):
             lo, hi = i * Gc, min(G, (i + 1) * Gc)
-            part = self._factor_bands(self._combine_bands(
-                M.bands[lo:hi], L.bands[lo:hi], a, b, dM, dL))
+            part = self._factor_bands(slab(lo, hi))
             if C == 1:
                 fsub = part
                 break
@@ -388,19 +437,39 @@ class BandedOps:
                     fsub[name] = arr.new_empty(shape)
                 fsub[name].narrow(axis, lo, hi - lo).copy_(arr)
             del part
-        aux = {"fsub": fsub, "factor_chunks": C, "ab": (a, b)}
+        aux = {"fsub": fsub, "factor_chunks": C}
         if self.t:
-            Vt = torch.zeros((G, self.t, self.n_pad), dtype=M.bands.dtype,
+            Vt = torch.zeros((G, self.t, self.n_pad), dtype=dtype,
                              device=self.device)
-            if M.Vt is not None:
-                Vt += a * M.Vt
-            if L.Vt is not None:
-                Vt += b * L.Vt
+            for V, scale in zip(Vts, scales):
+                if V is not None:
+                    Vt += scale * V
             aux["Vt"] = Vt
             aux["YbT"] = self._woodbury(fsub, Vt)
         return aux
 
+    def factor_lincomb(self, a, M, b, L):
+        """Factor a*M + b*L without persisting the combined bands: the
+        combination is a transient of the factorization, built per G-chunk
+        (`_pick_chunks`), and the refinement residual uses matvecs of the
+        resident M and L. Each chunk's operators are written into its
+        slice of one store over all G groups, so a solve is one
+        substitution whatever the chunk count; the Woodbury solve runs
+        once over the store. Returns the aux: {"fsub", "Vt", "YbT",
+        "factor_chunks", "ab"}."""
+        dM = torch.as_tensor(M.dsel, device=self.device)
+        dL = torch.as_tensor(L.dsel, device=self.device)
+        aux = self._factor_store(
+            M.bands.shape[0], M.bands.element_size(),
+            lambda lo, hi: self._combine_bands(
+                M.bands[lo:hi], L.bands[lo:hi], a, b, dM, dL),
+            [M.Vt, L.Vt], [a, b], M.bands.dtype)
+        aux["ab"] = (a, b)
+        return aux
+
     def _aux_matvec(self, aux, x, mats):
+        if "A" in aux:
+            return self.matvec(aux["A"], x)
         a, b = aux["ab"]
         MX, LX = self.matvec_pair(*mats, x)
         return a * MX + b * LX
@@ -420,9 +489,11 @@ class BandedOps:
             y = y - torch.einsum("gtn,gt->gn", aux["YbT"], z)
         return y[:, :self.n].index_select(1, self._pos_col_t)
 
-    def solve(self, aux, rhs, mats):
-        """Solve (a*M + b*L) x = rhs against the factored aux, polished by
-        the residual-matvec refinement sweeps against mats = (M, L)."""
+    def solve(self, aux, rhs, mats=None):
+        """Solve (a*M + b*L) x = rhs (or A x = rhs, for an aux of
+        `factor`) against the factored aux, polished by the
+        residual-matvec refinement sweeps against mats = (M, L) (or the
+        aux's A)."""
         x = self._solve_once(aux, rhs)
         for _ in range(self.sweeps):
             r = rhs - self._aux_matvec(aux, x, mats)

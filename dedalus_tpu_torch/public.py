@@ -6,25 +6,30 @@ User-facing API: `import dedalus_tpu_torch.public as d3`
 from .core.coords import Coordinate, CartesianCoordinates
 from .core.distributor import Distributor
 from .core.domain import Domain
-from .core.basis import Jacobi, ChebyshevT, RealFourier
+from .core.basis import (Jacobi, ChebyshevT, Legendre, RealFourier,
+                         ComplexFourier, Fourier)
 from .core.field import Field
-from .core.problems import IVP
+from .core.problems import IVP, LBVP, NLBVP, EVP
 from .core.operators import (
     AdvectiveCFL, Differentiate, Convert, Interpolate, Integrate, Lift,
     Gradient, Divergence, Laplacian, Trace, TimeDerivative,
     UnaryGridFunction, dt)
-from .core.arithmetic import Add, Multiply, DotProduct
+from .core.arithmetic import Add, Multiply, DotProduct, Power
 from .core.timesteppers import (schemes, add_scheme, MultistepIMEX,
                                 RungeKuttaIMEX, CNAB1, SBDF1, CNAB2, MCNAB2,
                                 SBDF2, CNLF2, SBDF3, SBDF4, RK111, RK222,
                                 RK443, RKSMR, RKGFY)
-from .core.solvers import InitialValueSolver
+from .core.solvers import (InitialValueSolver, LinearBoundaryValueSolver,
+                           NonlinearBoundaryValueSolver, EigenvalueSolver)
 from .core.evaluator import Evaluator
 from .extras.flow_tools import CFL, GlobalFlowProperty, GlobalArrayReducer
 
 # lowercase operator aliases (reference: core/operators.py aliases)
 dot = DotProduct
 InitialValueProblem = IVP
+LinearBoundaryValueProblem = LBVP
+NonlinearBoundaryValueProblem = NLBVP
+EigenvalueProblem = EVP
 Chebyshev = ChebyshevT
 grad = Gradient
 div = Divergence

@@ -89,11 +89,16 @@ def apply_matrix_torch(matrix, array, axis):
     """
     Device-side: contract ``matrix`` (m_out, m_in) with ``array`` along
     ``axis`` (the counterpart of apply_matrix_jax). The matrix precision
-    follows the data.
+    follows the data; a complex matrix promotes real data, and a real
+    matrix acts on the real and imaginary parts of complex data (torch's
+    matmul takes one dtype, where jnp.matmul promotes).
     """
     matrix = match_precision(matrix, array)
     if matrix.is_complex() and not array.is_complex():
         array = array.to(matrix.dtype)
+    if array.is_complex() and not matrix.is_complex():
+        return torch.complex(apply_matrix_torch(matrix, array.real, axis),
+                             apply_matrix_torch(matrix, array.imag, axis))
     arr = torch.movedim(array, axis, -1)
     out = torch.matmul(arr, matrix.T)
     return torch.movedim(out, -1, axis)
@@ -107,6 +112,42 @@ def kron(*factors):
     for f in factors[1:]:
         out = sp.kron(out, f, format="csr")
     return sp.csr_matrix(out)
+
+
+def scipy_sparse_eigs(A, B, N, target, matsolver=None, left=False, **kw):
+    """
+    Shift-invert sparse eigensolve of the generalized problem
+    A.x = lambda B.x around `target`, on the host with scipy/ARPACK
+    (counterpart of dedalus_tpu/tools/array.py:118; reference:
+    tools/array.py:398-444). Returns (evals, evecs), and with `left` also
+    the left eigenvalues and eigenvectors.
+    """
+    import scipy.sparse.linalg as spla
+    A = sp.csc_matrix(A)
+    B = sp.csc_matrix(B)
+    C = A - target * B
+    solver = spla.factorized(C)
+
+    def matvec(x):
+        return solver(B @ x)
+
+    op = spla.LinearOperator(dtype=np.complex128, shape=A.shape,
+                             matvec=matvec)
+    evals, evecs = spla.eigs(op, k=N, which="LM", sigma=None, **kw)
+    # shift-invert eigenvalues mu = 1 / (lambda - target)
+    evals = target + 1.0 / evals
+    if left:
+        solver_H = spla.factorized(C.conj().T)
+
+        def matvec_H(x):
+            return B.conj().T @ solver_H(x)
+
+        op_H = spla.LinearOperator(dtype=np.complex128, shape=A.shape,
+                                   matvec=matvec_H)
+        evals_left, evecs_left = spla.eigs(op_H, k=N, which="LM", **kw)
+        evals_left = target + 1.0 / np.conj(evals_left)
+        return evals, evecs, evals_left, evecs_left
+    return evals, evecs
 
 
 def sparsify(dense, cutoff=1e-14):

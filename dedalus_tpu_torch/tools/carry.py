@@ -6,14 +6,15 @@ The JAX solver's arrays are passed as plain numpy (the caller converts
 them; this module imports nothing of the JAX package):
 
   * the pencil state X (G, S)
-  * the M/L stores: dense (G, S, S) arrays, or band stores
-    {"bands", "Vt"[, "dsel"]}
+  * the pencil matrix stores (M and L; an LBVP's L; real or complex):
+    dense (G, S, S) arrays, or band stores {"bands", "Vt"[, "dsel"]}
   * for band stores, the MatrixStructure fields (S, NB, q, t_pins, kl, ku, row_perm,
     col_perm, pinned_positions)
   * field coefficient data by field name
 
-so that both packages can step from one state on one assembled system,
-separately from the check that they assemble the same system.
+so that both packages can step, solve or eigensolve from one state on
+one assembled system, separately from the check that they assemble the
+same system.
 """
 
 import types
@@ -46,12 +47,15 @@ def state(X, device, dtype=np.float64):
 
 
 def install_system(solver, structure_fields, matrices, X=None):
-    """Install a carried pencil system into a built port solver: M/L on
-    the solver's device with their ops (and the state X when given).
-    `structure_fields` None carries a dense system, {"M": (G, S, S),
-    "L": (G, S, S)}, solved with the solver's dense matsolver; otherwise
-    the band stores with their structure. The timestepper's factorization
-    is dropped, so the next step factors the carried matrices."""
+    """Install a carried pencil system into a built port solver, with its
+    ops (and the state X when given). `structure_fields` None carries a
+    dense system, {name: (G, S, S)}, solved with the solver's dense
+    matsolver; otherwise the band stores with their structure. `matrices`
+    holds the solver's matrix names: M and L for an IVP or an EVP (real
+    or complex), L for an LBVP. What follows is the solver's own: an IVP
+    puts M/L on its device and drops the timestepper's factorization (the
+    next step factors the carried matrices), an LBVP factors the carried
+    L, an EVP eigensolves the carried host matrices."""
     from ..libraries.pencilops import BandedOps, DenseOps
     if structure_fields is None:
         solver.structure = None
@@ -64,12 +68,7 @@ def install_system(solver, structure_fields, matrices, X=None):
         solver.ops = BandedOps(st, solver.dist.device)
         solver._matrices = {name: {k: np.asarray(v) for k, v in arrs.items()}
                             for name, arrs in matrices.items()}
-    solver.M_mat = solver.ops.to_device(solver._matrices["M"],
-                                        solver.pencil_dtype)
-    solver.L_mat = solver.ops.to_device(solver._matrices["L"],
-                                        solver.pencil_dtype)
-    solver.timestepper._lhs_key = None
-    solver.timestepper._lhs_aux = None
+    solver._install_carried()
     if X is not None:
         install_state(solver, X)
 

@@ -61,9 +61,11 @@ def test_dispatch_uses_plain_on_cpu():
 # Woodbury form); q = 64 (a FwdOp of 128 KB in f64, streamed in row
 # panels); more groups than the H100's 132 SMs (two blocks per SM, so a
 # warp per row, where the smaller grids split each row over threads);
-# q = 8 with two columns
+# q = 8 with two columns; the Poisson 2048x1024 LBVP's shape (q = 6,
+# NB = 342, G = 1024: a chain of 683 tiny operators per group)
 CARD_SHAPES = [(5, 7, 32, 3), (3, 2, 32, 1), (4, 9, 17, 1), (4, 9, 17, 16),
-               (2, 5, 64, 1), (2, 5, 64, 16), (200, 33, 32, 1), (6, 12, 8, 2)]
+               (2, 5, 64, 1), (2, 5, 64, 16), (200, 33, 32, 1), (6, 12, 8, 2),
+               (1024, 342, 6, 1)]
 
 
 @pytest.mark.cuda

@@ -73,8 +73,9 @@ Phases (each prints its own lines; any failure exits non-zero):
      to 1e-10.
  11. waves128 (examples/waves_on_a_string.py, Legendre, solve_dense with
      left eigenvectors): the lowest 8 eigenvalues within 1e-8 of
-     (n pi)^2, left eigenvectors biorthonormal against -M to 1e-8. The
-     kernel's count stays 0 through phases 9-11.
+     (n pi)^2, left eigenvectors biorthonormal against -M to 1e-8.
+     Phases 5, 6 and 9-11 each run with the kernel's count set to 0
+     just before and read just after; it must stay 0.
  12. The kernels line, the card line, and the result line.
 
 Each phase prints its seconds and one JSON record on its own line.
@@ -101,6 +102,8 @@ PEAK_FLOPS = {"float64": 34e12, "float32": 67e12}
 BOUND = {"float64": 1e-12, "float32": 1e-5}
 # bytes written between cold launches: more than the H100's 50 MB L2
 FLUSH_BYTES = 64 * 2 ** 20
+# warm Poisson solves timed per run (the median is reported)
+POISSON_SOLVES = 25
 RESULTS = {}
 
 
@@ -463,9 +466,9 @@ def timed_solves(solver, f, n):
     return statistics.median(ev_ms), statistics.median(wall_ms)
 
 
-def poisson_run(label, Nx, Ny, matsolver, solves):
+def poisson_run(label, Nx, Ny, matsolver):
     """Build, factor (in the build), solve and check one Poisson LBVP on
-    the card; time `solves` warm solves and a re-factor; count the
+    the card; time POISSON_SOLVES warm solves and a re-factor; count the
     kernel's launches from the build to the last timed solve. Returns
     (record, solver, fields)."""
     import torch
@@ -491,12 +494,13 @@ def poisson_run(label, Nx, Ny, matsolver, solves):
     solver.solve()
     torch.cuda.synchronize()
     rec["first_solve_s"] = time.perf_counter() - t0
-    rec["solve_ms"], rec["solve_wall_ms"] = timed_solves(solver, f, solves)
-    rec["warm_solves"] = solves
+    rec["solve_ms"], rec["solve_wall_ms"] = timed_solves(solver, f,
+                                                         POISSON_SOLVES)
+    rec["warm_solves"] = POISSON_SOLVES
     rec["launches"] = fusedstep.LAUNCHES["banded_subst"]
     if solver.ops.kind == "banded":
         rec["expected_launches"] = (1 if solver.ops.t else 0) \
-            + (1 + solves) * (1 + solver.ops.sweeps)
+            + (1 + POISSON_SOLVES) * (1 + solver.ops.sweeps)
     else:
         rec["expected_launches"] = 0
     rec["host_syncs_per_solve"], rec["host_sync_messages"] = \
@@ -815,7 +819,6 @@ def main():
     parser.add_argument("--real", type=int, nargs=2, default=(2048, 1024),
                         metavar=("NX", "NZ"))
     parser.add_argument("--real-steps", type=int, default=10)
-    parser.add_argument("--poisson-solves", type=int, default=25)
     args = parser.parse_args()
 
     import torch
@@ -1004,21 +1007,30 @@ def main():
     release()
     phase_done(f"4 rb{Nx}x{Nz}")
 
+    def dense_path(path, run):
+        """Run a path that takes the dense solve with the substitution
+        kernel's count set to 0 just before it; record the count read
+        just after, which must stay 0."""
+        for name in fusedstep.LAUNCHES:
+            fusedstep.LAUNCHES[name] = 0
+        rec = run()
+        n = fusedstep.LAUNCHES["banded_subst"]
+        RESULTS.setdefault("dense_path_launches", {})[path] = n
+        if n:
+            fail(f"the dense {path} path launched the banded kernel {n} "
+                 "times")
+        return rec
+
     # ---------------------------------------------------------- phase 5
-    # the dense paths run no hand-written kernel: the substitution's
-    # count must stay 0 through them
-    for name in fusedstep.LAUNCHES:
-        fusedstep.LAUNCHES[name] = 0
-    RESULTS["kdv"] = kdv_phase(1024, 500)
+    RESULTS["kdv"] = dense_path("kdv1024", lambda: kdv_phase(1024, 500))
     log("kdv1024 " + json.dumps(RESULTS["kdv"]))
     release()
     phase_done("5 kdv1024")
 
     # ---------------------------------------------------------- phase 6
-    RESULTS["shear"] = shear_phase(512, 100, 30)
+    RESULTS["shear"] = dense_path("shear512",
+                                  lambda: shear_phase(512, 100, 30))
     log("shear512 " + json.dumps(RESULTS["shear"]))
-    if fusedstep.LAUNCHES["banded_subst"]:
-        fail("the dense kdv/shear paths launched the banded kernel")
     release()
     phase_done("6 shear512")
 
@@ -1029,8 +1041,7 @@ def main():
     # picking the banded path there (dense would be 34.5 GB)
     RESULTS["poisson64x32_cuda_vs_cpu_rel"] = poisson_card_vs_cpu(
         64, 32, "banded")
-    rec, solver, f = poisson_run("poisson2048x1024", 2048, 1024, None,
-                                 args.poisson_solves)
+    rec, solver, f = poisson_run("poisson2048x1024", 2048, 1024, None)
     if rec["ops"] != "banded":
         fail(f"poisson2048x1024 under 'auto' took the {rec['ops']} path")
     RESULTS["poisson2048x1024"] = rec
@@ -1047,12 +1058,11 @@ def main():
     # the example's own size: 'auto' takes the dense path (69 MB), as the
     # JAX package does off the TPU; the banded path of the same problem
     # beside it
-    dense, dsolver, dfields = poisson_run("poisson256x128", 256, 128, None,
-                                          args.poisson_solves)
+    dense, dsolver, dfields = poisson_run("poisson256x128", 256, 128, None)
     if dense["ops"] != "dense":
         fail(f"poisson256x128 under 'auto' took the {dense['ops']} path")
     banded, bsolver, bfields = poisson_run("poisson256x128 banded", 256, 128,
-                                           "banded", args.poisson_solves)
+                                           "banded")
     dense["banded"] = banded
     dense["banded_vs_dense_rel"] = rel_diff(solution_of(bfields),
                                             solution_of(dfields))
@@ -1069,23 +1079,20 @@ def main():
     phase_done("8 poisson256x128")
 
     # ---------------------------------------------------------- phase 9
-    # the nonlinear BVPs (dense under 'auto'): the substitution kernel's
-    # count stays 0 through phases 9-11
-    for name in fusedstep.LAUNCHES:
-        fusedstep.LAUNCHES[name] = 0
-    RESULTS["bratu"] = bratu_phase(256)
+    # the nonlinear BVPs (dense under 'auto') and the EVPs (host
+    # eigensolves) launch no substitution
+    RESULTS["bratu"] = dense_path("bratu256", lambda: bratu_phase(256))
     release()
     phase_done("9 bratu256")
 
     # --------------------------------------------------------- phase 10
-    RESULTS["rbevp"] = rbevp_phase(64, np.linspace(3.0, 3.25, 5))
+    RESULTS["rbevp"] = dense_path(
+        "rbevp64", lambda: rbevp_phase(64, np.linspace(3.0, 3.25, 5)))
     release()
     phase_done("10 rbevp64")
 
     # --------------------------------------------------------- phase 11
-    RESULTS["waves"] = waves_phase(128)
-    if fusedstep.LAUNCHES["banded_subst"]:
-        fail("the dense NLBVP and EVP phases launched the banded kernel")
+    RESULTS["waves"] = dense_path("waves128", lambda: waves_phase(128))
     release()
     phase_done("11 waves128")
 
@@ -1104,7 +1111,7 @@ def main():
                "poisson2048x1024": RESULTS["poisson2048x1024"]["launches"],
                "poisson256x128 banded": banded["launches"],
                "poisson256x128 dense": dense["launches"],
-               "kdv1024, shear512, bratu256, rbevp64, waves128": 0}
+               **RESULTS["dense_path_launches"]}
     kernels = {"kernels": [{
         "name": "banded_subst", "route": "cuda",
         "source": "dedalus_tpu_torch/csrc/banded_subst.cu",

@@ -84,6 +84,8 @@ class SolverBase:
         Woodbury when forced, or under 'auto' above the cutoff when the
         banded path applies (else dense). Sets self._matrices (host
         arrays), self.structure (None on the dense path) and self.ops.
+        An EVP keeps only the shared-pattern store (or, above
+        EVP_LAZY_BYTES, nothing) and has no ops.
         """
         names = self.matrices
         G, S = self.pencil_shape
@@ -109,13 +111,17 @@ class SolverBase:
             subproblems=self.subproblems, partial=True)
         self.build_seconds["host_assembly"] = time_mod.perf_counter() - t0
         self.build_seconds["structure"] = 0.0
+        self.structure = None
         if self.lazy_ok:
-            # the shared-pattern store scatters straight to each group's
-            # CSR in _group_csr
+            # an EVP eigensolves on the host: the shared-pattern store
+            # scatters straight to each group's CSR in _group_csr, and no
+            # device representation is built
             self._batched = batched
+            self._matrices = None
+            self.ops = None
+            return
         cutoff = int(config["linear algebra"].get("BANDED_CUTOFF_BYTES",
                                                   str(1 << 30)))
-        self.structure = None
         if self._path == "banded" or (self._path == "auto"
                                       and dense_bytes > cutoff):
             reason = self._try_banded(batched, names, S)
@@ -628,8 +634,10 @@ class EigenvalueSolver(SolverBase):
     reference: core/solvers.py:134). The pencil matrices stay on the
     host: each eigensolve is one group's generalized problem in scipy,
     and `set_state` scatters a mode into the fields on the solver's
-    device. Above [linear algebra] EVP_LAZY_BYTES of dense store, a group
-    is assembled only when asked for."""
+    device. The build keeps the shared-pattern store and no device
+    representation, whatever `matsolver`; above [linear algebra]
+    EVP_LAZY_BYTES of dense store, a group is assembled only when asked
+    for."""
 
     matrices = ("M", "L")
     lazy_ok = True

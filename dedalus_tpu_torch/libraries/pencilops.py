@@ -248,7 +248,8 @@ class BandedOps:
         A[perm] = L @ U, the convention of jax.lax.linalg.lu."""
         LU, pivots = torch.linalg.lu_factor(A)
         P, _, _ = torch.lu_unpack(LU, pivots, unpack_data=False)
-        return LU, P.argmax(dim=-2)
+        # P has A's dtype; argmax takes no complex input
+        return LU, P.real.argmax(dim=-2)
 
     def _factor_interior(self, bands):
         """

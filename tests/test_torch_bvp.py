@@ -3,9 +3,10 @@ Boundary value problems in the port (dedalus_tpu_torch: LBVP and its
 LinearBoundaryValueSolver, NLBVP and its Newton iteration, Frechet
 differentials and Power) held against the JAX package on the CPU:
 
-  * the LBVPs of the JAX package's tests/test_lbvp.py and the Poisson
-    example assemble bit-equal L stores (np.array_equal), dense and
-    forced banded, and the same valid-row masks;
+  * the LBVPs of the JAX package's tests/test_lbvp.py, the Poisson
+    example and a complex 1-D problem assemble bit-equal L stores
+    (np.array_equal), dense and forced banded, and the same valid-row
+    masks;
   * their solutions agree to 1e-12 relative, dense and banded, and again
     when the port solves the L carried from the JAX solver
     (tools/carry.py);
@@ -194,8 +195,31 @@ def poisson_example(d3):
     return problem
 
 
+def complex_1d(d3):
+    """lap(u) + k u = f with a complex k and f, u(0) = i, u'(1) = 0: the
+    complex L store, dense and banded."""
+    zc = d3.Coordinate("z")
+    dist = d3.Distributor(zc, dtype=np.complex128, **dist_kw(d3))
+    zb = d3.ChebyshevT(zc, size=16, bounds=(0, 1))
+    z = dist.local_grid(zb)
+    u = dist.Field(name="u", bases=zb)
+    t1 = dist.Field(name="t1")
+    t2 = dist.Field(name="t2")
+    rhs = dist.Field(name="rhs", bases=zb)
+    rhs["g"] = (1 + 2j) * np.exp(3j * z.ravel())
+    k = 2 - 1j
+    lift = lambda A, n: d3.Lift(A, zb.derivative_basis(2), n)  # noqa: E731
+    dz = lambda A: d3.Differentiate(A, zc)  # noqa: E731
+    problem = d3.LBVP([u, t1, t2], namespace=locals())
+    problem.add_equation("lap(u) + k*u + lift(t1,-1) + lift(t2,-2) = rhs")
+    problem.add_equation("u(z=0) = 1j")
+    problem.add_equation("dz(u)(z=1) = 0")
+    return problem
+
+
 LBVPS = {
     "poisson1d": poisson_1d,
+    "complex": complex_1d,
     "poisson2d": poisson_2d,
     "ncc": ncc_lbvp,
     "vector": vector_lbvp,

@@ -76,7 +76,28 @@ Phases (each prints its own lines; any failure exits non-zero):
      (n pi)^2, left eigenvectors biorthonormal against -M to 1e-8.
      Phases 5, 6 and 9-11 each run with the kernel's count set to 0
      just before and read just after; it must stay 0.
- 12. The kernels line, the card line, and the result line.
+ 12. sw512x256 (benchmarks/progression.py config 4, the Galewsky jet
+     on the sphere, through extras/bench_problems.py
+     build_shallow_water: SphereBasis 512x256, dealias 3/2, RK222,
+     dt = 300 s in simulation units; 'auto' takes the banded path,
+     q = 7): sw64x32 forced banded card vs CPU to 1e-12 after the
+     balanced-height LBVP and 10 steps; build with its phases, the
+     balance LBVP re-solved (|ave(h)| <= 1e-13 max|h|, tau-corrected
+     residual <= 1e-10 of its RHS), the factor and SW_STEPS timed steps
+     (steps/s), launches = 1 + 4 x (1 + SW_STEPS) (the factoring first
+     step and the timed ones), no host sync in a steady
+     step, finite state, integ(h) drift <= 1e-12 of 4 pi max|h|, the
+     vorticity -div(skew(u)) through a DictionaryHandler, peak memory,
+     the per-layer breakdown, launches per step and the idle share
+     (torch.profiler), and the kernel vs plain at this factor's own
+     operators (q = 7, f64).
+ 13. Complex banded solves: the complex128 Poisson (build_poisson_solver
+     on a ComplexFourier x ChebyshevT domain) at 64x32 forced banded card
+     vs CPU to 1e-12; at 1024x512 under 'auto' (banded: dense would be
+     4.3 GB) the Poisson phase's timings, launches and checks, all to
+     1e-12; the complex kernel vs plain at its factor's operators in
+     complex128 (1e-12) and complex64 (1e-5).
+ 14. The kernels line, the card line, and the result line.
 
 Each phase prints its seconds and one JSON record on its own line.
 
@@ -96,14 +117,21 @@ ROOT = pathlib.Path(__file__).resolve().parent
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and non-tensor-core
 # FP64/FP32 rates
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float64": 34e12, "float32": 67e12}
+PEAK_FLOPS = {"float64": 34e12, "float32": 67e12, "complex128": 34e12,
+              "complex64": 67e12}
 # kernel vs plain: relative to max|plain| (summation order differs; f32
-# against f64 on the RB 256x64 factor operators differs by ~5e-7)
-BOUND = {"float64": 1e-12, "float32": 1e-5}
+# against f64 on the RB 256x64 factor operators differs by ~5e-7); the
+# complex types as their real parts
+BOUND = {"float64": 1e-12, "float32": 1e-5, "complex128": 1e-12,
+         "complex64": 1e-5}
 # bytes written between cold launches: more than the H100's 50 MB L2
 FLUSH_BYTES = 64 * 2 ** 20
 # warm Poisson solves timed per run (the median is reported)
 POISSON_SOLVES = 25
+# the sphere phase: progression config 4's size, and the timed steps
+# after the factoring first one
+SW_SIZE = (512, 256)
+SW_STEPS = 20
 RESULTS = {}
 
 
@@ -155,14 +183,15 @@ def cold_median_ms(fn, reps=10):
 
 def subst_cost(fsub, fp):
     """(bytes, flops) the substitution must move and do: each input read
-    once, the output written once; 2 flops per operator word per column."""
+    once, the output written once; 2 flops per operator word per column
+    (8 real flops for a complex multiply-add)."""
     G, q = fsub["lastOp"].shape[:2]
     item = fp.element_size()
     k = 1 if fp.ndim == 2 else fp.shape[1]
     words = fsub["FwdOp"].numel() + fsub["BwdOp"].numel() \
         + fsub["lastOp"].numel()
     nbytes = (words + 2 * fp.numel()) * item
-    return nbytes, 2 * words * k
+    return nbytes, (8 if fp.is_complex() else 2) * words * k
 
 
 def check_kernel(label, fsub, fp):
@@ -401,12 +430,12 @@ def dense_breakdown(label, solver, dt, reps, cfl=None):
     return out
 
 
-def poisson_checks(label, f):
+def poisson_checks(label, f, bound=1e-10):
     """Boundary conditions and the tau-corrected equation of a solved
-    Poisson LBVP (build_poisson_solver): |u(y=0) - g| / max|g|,
-    |dy(u)(y=Ly)| / max|dy(u)| (h = 0), and the coefficients of
-    lap(u) + lift(tau_1) + lift(tau_2) - f over max|f|, each <= its
-    bound."""
+    Poisson LBVP (build_poisson_solver or its complex twin): |u(y=0) - g|
+    / max|g| <= 1e-12, |dy(u)(y=Ly)| / max|dy(u)| (h = 0), and the
+    coefficients of lap(u) + lift(tau_1) + lift(tau_2) - f over max|f|,
+    each <= `bound`."""
     import numpy as np
     import dedalus_tpu_torch.public as d3
     u, g, rhs = f["u"], f["g"], f["f"]
@@ -426,8 +455,8 @@ def poisson_checks(label, f):
                            + lift(f["tau_2"], -2) - rhs).evaluate()["c"]))
             / np.max(np.abs(rhs["c"]))),
     }
-    bounds = {"u(y=0)-g / max|g|": 1e-12, "dy(u)(y=Ly) / max|dy(u)|": 1e-10,
-              "lap(u)+taus-f / max|f| (coeff)": 1e-10}
+    bounds = {"u(y=0)-g / max|g|": 1e-12, "dy(u)(y=Ly) / max|dy(u)|": bound,
+              "lap(u)+taus-f / max|f| (coeff)": bound}
     log(f"{label} checks " + json.dumps(checks))
     bad = {k: v for k, v in checks.items() if not v <= bounds[k]}
     if bad:
@@ -466,11 +495,12 @@ def timed_solves(solver, f, n):
     return statistics.median(ev_ms), statistics.median(wall_ms)
 
 
-def poisson_run(label, Nx, Ny, matsolver):
+def poisson_run(label, Nx, Ny, matsolver, dtype="float64"):
     """Build, factor (in the build), solve and check one Poisson LBVP on
-    the card; time POISSON_SOLVES warm solves and a re-factor; count the
-    kernel's launches from the build to the last timed solve. Returns
-    (record, solver, fields)."""
+    the card (complex128: the ComplexFourier carrier, checked to 1e-12
+    throughout); time POISSON_SOLVES warm solves and a re-factor; count
+    the kernel's launches from the build to the last timed solve.
+    Returns (record, solver, fields)."""
     import torch
     from dedalus_tpu_torch.core import fusedstep
     from dedalus_tpu_torch.extras.bench_problems import build_poisson_solver
@@ -479,9 +509,10 @@ def poisson_run(label, Nx, Ny, matsolver):
         fusedstep.LAUNCHES[name] = 0
     t0 = time.perf_counter()
     solver, f = build_poisson_solver(Nx, Ny, matsolver=matsolver,
-                                     device="cuda")
+                                     device="cuda", dtype=dtype)
     torch.cuda.synchronize()
     rec = {"size": f"{Nx}x{Ny}", "matsolver": matsolver,
+           "dtype": str(solver.pencil_dtype),
            "build_s": time.perf_counter() - t0,
            "build_phases_s": dict(solver.build_seconds),
            "pencil_shape": list(solver.pencil_shape),
@@ -510,7 +541,8 @@ def poisson_run(label, Nx, Ny, matsolver):
     solver.ops.factor(solver.L_mat)
     torch.cuda.synchronize()
     rec["factor_s"] = time.perf_counter() - t0
-    rec["checks"] = poisson_checks(label, f)
+    rec["checks"] = poisson_checks(label, f, 1e-12 if dtype == "complex128"
+                                   else 1e-10)
     log(f"{label} " + json.dumps(rec))
     if rec["launches"] != rec["expected_launches"]:
         fail(f"{label}: {rec['launches']} kernel launches, expected "
@@ -521,7 +553,7 @@ def poisson_run(label, Nx, Ny, matsolver):
     return rec, solver, f
 
 
-def poisson_card_vs_cpu(Nx, Ny, matsolver):
+def poisson_card_vs_cpu(Nx, Ny, matsolver, dtype="float64"):
     """The same Poisson LBVP solved on the card and on the CPU (held
     against the JAX package by tests/test_torch_bvp.py): max relative
     difference of the solutions, failing above 1e-12."""
@@ -529,14 +561,14 @@ def poisson_card_vs_cpu(Nx, Ny, matsolver):
     out = []
     for device in ("cuda", "cpu"):
         solver, f = build_poisson_solver(Nx, Ny, matsolver=matsolver,
-                                         device=device)
+                                         device=device, dtype=dtype)
         solver.solve()
         out.append(solution_of(f))
+    label = f"{dtype} poisson{Nx}x{Ny} {matsolver}"
     err = rel_diff(out[0], out[1])
-    log(f"poisson{Nx}x{Ny} {matsolver} cuda vs cpu: {err:.3e}")
+    log(f"{label} cuda vs cpu: {err:.3e}")
     if not err <= 1e-12:
-        fail(f"poisson{Nx}x{Ny} on the card disagrees with the CPU: "
-             f"{err:.3e}")
+        fail(f"{label} on the card disagrees with the CPU: {err:.3e}")
     return err
 
 
@@ -803,6 +835,163 @@ def shear_phase(N, steps, cfl_steps):
             and all(0 < dt <= 1e-2 for dt in dts)):
         fail(f"shear{N}: the CFL run gave a bad state or dt")
     return rec
+
+
+def sw_balance_checks(label, solver, balance):
+    """Re-solve the balanced-height LBVP (a warm solve on the card, timed)
+    and check it: |ave(h)| <= 1e-13 max|h| and the tau-corrected residual
+    L - F of its first equation <= 1e-10 max|F| (coefficients). Then put
+    the IVP's state back (h = balanced + perturbation), so the steps start
+    where the build left them."""
+    import numpy as np
+    import torch
+    import dedalus_tpu_torch.public as d3
+    from dedalus_tpu_torch.tools import carry
+    X0 = solver.X.cpu().numpy()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    balance.solve()
+    torch.cuda.synchronize()
+    rec = {"balance_solve_s": time.perf_counter() - t0,
+           "balance_pencil_shape": list(balance.pencil_shape),
+           "balance_ops": balance.ops.kind,
+           "balance_build_phases_s": dict(balance.build_seconds)}
+    h = balance.variables[0]
+    eq = balance.problem.equations[0]
+    resid = (eq["L"] - eq["F"]).evaluate()["c"]
+    checks = {
+        "|ave(h)| / max|h|": float(
+            np.abs(d3.ave(h).evaluate()["g"]).max() / np.abs(h["g"]).max()),
+        "balance L-F / max|F| (coeff)": float(
+            np.abs(resid).max() / np.abs(eq["F"].evaluate()["c"]).max()),
+    }
+    bounds = {"|ave(h)| / max|h|": 1e-13,
+              "balance L-F / max|F| (coeff)": 1e-10}
+    rec["checks"] = checks
+    log(f"{label} balance checks " + json.dumps(checks))
+    bad = {k: v for k, v in checks.items() if not v <= bounds[k]}
+    if bad:
+        fail(f"{label}: balance checks out of bound: {bad}")
+    carry.install_state(solver, X0)
+    return rec
+
+
+def sw_phase(Nphi, Ntheta, steps):
+    """sw512x256 (benchmarks/progression.py config 4 through the port's
+    build_shallow_water: the Galewsky jet, balanced-height LBVP, then
+    RK222 at dt = 300 s in simulation units, 'auto' -> banded): build,
+    the balance checks, the factoring first step and `steps` timed
+    steps, launches against 1 + 4 (1 + steps), host syncs, mass conservation, the vorticity
+    through a DictionaryHandler, peak memory, the breakdown; the kernel
+    at this factor's operators; sw64x32 forced banded card vs CPU."""
+    import numpy as np
+    import torch
+    import dedalus_tpu_torch.public as d3
+    from dedalus_tpu_torch.core import fusedstep
+    from dedalus_tpu_torch.extras.bench_problems import build_shallow_water
+    from dedalus_tpu_torch.extras.profile_step import profile_solver
+    rec = {"size": f"{Nphi}x{Ntheta}", "steps": steps,
+           "card_vs_cpu_sw64x32_banded_rel": card_vs_cpu(
+               "sw64x32 banded", lambda device: build_shallow_water(
+                   64, 32, np.float64, matsolver="banded",
+                   device=device)[:2], 10)}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    solver, dt, balance = build_shallow_water(Nphi, Ntheta, np.float64,
+                                              device="cuda")
+    torch.cuda.synchronize()
+    rec["build_s"] = time.perf_counter() - t0
+    rec["build_phases_s"] = dict(solver.build_seconds)
+    rec["pencil_shape"] = list(solver.pencil_shape)
+    rec["ops"] = solver.ops.kind
+    if solver.ops.kind != "banded":
+        fail(f"sw{Nphi}x{Ntheta} under 'auto' took the {solver.ops.kind} "
+             "path")
+    st = solver.structure
+    rec.update(q=st.q, NB=st.NB, pins=st.t_pins, kl=st.kl, ku=st.ku,
+               dense_GB=solver.pencil_shape[0] * solver.pencil_shape[1] ** 2
+               * 8 / 1e9)
+    log(f"sw{Nphi}x{Ntheta} build " + json.dumps(rec))
+    rec.update(sw_balance_checks(f"sw{Nphi}x{Ntheta}", solver, balance))
+    h = solver.variables[1]
+    mass = lambda: float(d3.integ(h).evaluate()["g"].ravel()[0])  # noqa: E731
+    mass0 = mass()
+    for name in fusedstep.LAUNCHES:
+        fusedstep.LAUNCHES[name] = 0
+    t0 = time.perf_counter()
+    solver.step(dt)
+    torch.cuda.synchronize()
+    rec["first_step_s"] = time.perf_counter() - t0
+    rec["factor_chunks"] = solver.timestepper._lhs_aux[0]["factor_chunks"]
+    rec["steps_per_s"] = steps_per_s(solver, dt, steps)
+    rec["launches"] = fusedstep.LAUNCHES["banded_subst"]
+    rec["expected_launches"], _ = expected_launches(solver, 1 + steps,
+                                                    factorizations=1)
+    if rec["launches"] != rec["expected_launches"]:
+        fail(f"sw{Nphi}x{Ntheta}: {rec['launches']} kernel launches, "
+             f"expected {rec['expected_launches']}")
+    check_no_host_syncs(f"sw{Nphi}x{Ntheta}", rec, solver, dt)
+    hmax = float(np.abs(h["g"]).max())
+    rec["mass_drift / (4 pi max|h|)"] = abs(mass() - mass0) \
+        / (4 * np.pi * hmax)
+    if not bool(torch.isfinite(solver.X).all()):
+        fail(f"sw{Nphi}x{Ntheta}: non-finite state")
+    if not rec["mass_drift / (4 pi max|h|)"] <= 1e-12:
+        fail(f"sw{Nphi}x{Ntheta}: mass drift "
+             f"{rec['mass_drift / (4 pi max|h|)']:.3e} > 1e-12")
+    # the example's snapshot tasks, through a DictionaryHandler
+    u = solver.variables[0]
+    handler = solver.evaluator.add_dictionary_handler(iter=1)
+    handler.add_task(h, name="height")
+    handler.add_task(-d3.div(d3.Skew(u)), name="vorticity")
+    solver.step(dt)
+    vort = np.asarray(handler["vorticity"])
+    rec["vorticity_max"] = float(np.abs(vort).max())
+    if vort.shape != (Nphi, Ntheta) or not np.isfinite(vort).all():
+        fail(f"sw{Nphi}x{Ntheta}: bad vorticity task {vort.shape}")
+    solver.evaluator.handlers.remove(handler)
+    rec["max_memory_allocated_GB"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"sw{Nphi}x{Ntheta} " + json.dumps(rec))
+    rec["breakdown_ms"] = breakdown(f"sw{Nphi}x{Ntheta}", solver, dt, 5)
+    rec["profile"] = profile_solver(solver, dt, steps=5, warm=1)
+    log(f"sw{Nphi}x{Ntheta} profile " + json.dumps(rec["profile"]))
+    fsub = {k: solver.timestepper._lhs_aux[0]["fsub"][k]
+            for k in ("FwdOp", "BwdOp", "lastOp")}
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    fp = torch.randn((fsub["lastOp"].shape[0], solver.ops.n_pad),
+                     generator=gen, device="cuda", dtype=torch.float64)
+    kernel = check_kernel(f"sw{Nphi}x{Ntheta}-factors", fsub, fp)
+    return rec, kernel
+
+
+def complex_phase(Nx, Ny):
+    """Complex banded solves (the complex kernel): the complex128 Poisson
+    (ComplexFourier x ChebyshevT) at 64x32 forced banded, card vs CPU; at Nx x Ny under 'auto' (banded above the 1 GiB cutoff) with the
+    Poisson checks at 1e-12; the kernel vs plain at its factor's
+    operators in complex128 and complex64."""
+    import torch
+    rec = {"card_vs_cpu_64x32_banded_rel": poisson_card_vs_cpu(
+        64, 32, "banded", "complex128")}
+    run, solver, f = poisson_run(f"complex poisson{Nx}x{Ny}", Nx, Ny, None,
+                                 "complex128")
+    if run["ops"] != "banded":
+        fail(f"complex poisson{Nx}x{Ny} under 'auto' took the {run['ops']} "
+             "path")
+    run["dense_GB"] = run["pencil_shape"][0] * run["pencil_shape"][1] ** 2 \
+        * 16 / 1e9
+    rec.update(run)
+    fsub = {k: solver._aux["fsub"][k] for k in ("FwdOp", "BwdOp", "lastOp")}
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    shape = (fsub["lastOp"].shape[0], solver.ops.n_pad)
+    fp = torch.complex(
+        torch.randn(shape, generator=gen, device="cuda", dtype=torch.float64),
+        torch.randn(shape, generator=gen, device="cuda", dtype=torch.float64))
+    kernels = [check_kernel(f"complex-poisson{Nx}x{Ny}-factors", fsub, fp),
+               check_kernel(f"complex-poisson{Nx}x{Ny}-factors",
+                            {k: v.to(torch.complex64).contiguous()
+                             for k, v in fsub.items()},
+                            fp.to(torch.complex64))]
+    return rec, kernels
 
 
 def expected_launches(solver, steps, factorizations):
@@ -1097,10 +1286,24 @@ def main():
     phase_done("11 waves128")
 
     # --------------------------------------------------------- phase 12
-    # times and bound at this slice's main path shapes (Poisson
-    # 2048x1024's own factor operators, q = 6, f64); the errors are the
-    # worst over every kernel-vs-plain check (f32 ones included), each
-    # also listed with its relative bound, times and byte bound
+    # the sphere: progression config 4 through the banded kernel at q = 7
+    for name in fusedstep.LAUNCHES:
+        fusedstep.LAUNCHES[name] = 0
+    RESULTS["sw"], sw_kernel = sw_phase(*SW_SIZE, SW_STEPS)
+    release()
+    phase_done("12 sw512x256")
+
+    # --------------------------------------------------------- phase 13
+    # complex banded solves on the card (the complex instantiations)
+    RESULTS["complex_poisson"], complex_kernels = complex_phase(1024, 512)
+    release()
+    phase_done("13 complex poisson1024x512")
+
+    # --------------------------------------------------------- phase 14
+    # times and bound at this slice's main path shapes (sw512x256's own
+    # factor operators, q = 7, f64); the errors are the worst over every
+    # kernel-vs-plain check (f32 and complex ones included), each also
+    # listed with its relative bound, times and byte bound
     checks = [{k: rec[k] for k in ("shape", "dtype", "k", "max_abs_err",
                                    "max_rel_err", "bound_rel", "ms",
                                    "cold_ms", "stream_ms", "plain_ms",
@@ -1111,26 +1314,35 @@ def main():
                "poisson2048x1024": RESULTS["poisson2048x1024"]["launches"],
                "poisson256x128 banded": banded["launches"],
                "poisson256x128 dense": dense["launches"],
+               "sw512x256": RESULTS["sw"]["launches"],
+               "complex poisson1024x512":
+                   RESULTS["complex_poisson"]["launches"],
                **RESULTS["dense_path_launches"]}
     kernels = {"kernels": [{
         "name": "banded_subst", "route": "cuda",
         "source": "dedalus_tpu_torch/csrc/banded_subst.cu",
         "replaces": "dedalus_tpu/core/fusedstep.py:520",
-        "launches": RESULTS["poisson2048x1024"]["launches"],
+        "launches": RESULTS["sw"]["launches"],
         "launches_by_path": by_path,
         "max_abs_err": max(c["max_abs_err"] for c in checks),
         "max_rel_err": max(c["max_rel_err"] for c in checks),
-        "ms": poisson_kernel["ms"], "cold_ms": poisson_kernel["cold_ms"],
-        "stream_ms": poisson_kernel["stream_ms"],
-        "plain_ms": poisson_kernel["plain_ms"],
-        "bound_ms": poisson_kernel["bound_ms"],
-        "bound_by": poisson_kernel["bound_by"],
+        "ms": sw_kernel["ms"], "cold_ms": sw_kernel["cold_ms"],
+        "stream_ms": sw_kernel["stream_ms"],
+        "plain_ms": sw_kernel["plain_ms"],
+        "bound_ms": sw_kernel["bound_ms"],
+        "bound_by": sw_kernel["bound_by"],
         "library_ms": None,
-        "rb256x64": {k: main_rec[k] for k in ("ms", "plain_ms", "bound_ms",
-                                              "bound_by")},
+        **{path: {k: rec[k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by")}
+           for path, rec in (("rb256x64", main_rec),
+                             ("poisson2048x1024", poisson_kernel),
+                             ("complex128 poisson1024x512",
+                              complex_kernels[0]),
+                             ("complex64 poisson1024x512",
+                              complex_kernels[1]))},
         "checks": checks}]}
     RESULTS["kernels"] = kernels["kernels"]
-    phase_done("12 kernels line")
+    phase_done("14 kernels line")
     log(json.dumps(kernels))
     log(card)
     log(json.dumps({"ok": True, "device": {

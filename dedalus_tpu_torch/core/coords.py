@@ -1,6 +1,8 @@
 """
-Coordinate systems (counterpart of dedalus_tpu/core/coords.py, Cartesian
-subset). Coordinates are pure metadata: axis names and ordering.
+Coordinate systems (counterpart of dedalus_tpu/core/coords.py: Cartesian
+systems and the two-sphere). Coordinates are pure metadata: axis names and
+ordering, plus, for the curvilinear system, the small unitary intertwiner
+mapping tensor components to spin components.
 """
 
 import numpy as np
@@ -100,3 +102,44 @@ class CartesianCoordinates(CoordinateSystem):
 
     def __repr__(self):
         return f"CartesianCoordinates{self.names}"
+
+
+class AzimuthalCoordinate(Coordinate):
+    """Periodic azimuthal coordinate of a curvilinear system
+    (reference: core/coords.py AzimuthalCoordinate)."""
+
+
+class CurvilinearCoordinateSystem(CoordinateSystem):
+    """Base for curvilinear systems: defines spin intertwiners
+    (reference: core/coords.py CurvilinearCoordinateSystem)."""
+
+
+class S2Coordinates(CurvilinearCoordinateSystem):
+    """
+    Two-sphere coordinates (azimuth, colatitude); spin ordering (-, +)
+    (dedalus_tpu/core/coords.py:276; reference: core/coords.py:201
+    S2Coordinates).
+    """
+
+    spin_ordering = (-1, +1)
+    dim = 2
+    right_handed = True
+
+    def __init__(self, azimuth, colatitude):
+        self.names = (azimuth, colatitude)
+        self.azimuth = AzimuthalCoordinate(azimuth, cs=self)
+        self.colatitude = Coordinate(colatitude, cs=self)
+        self.coords = (self.azimuth, self.colatitude)
+        self.dist = None
+
+    def __repr__(self):
+        return f"S2Coordinates{self.names}"
+
+    @classmethod
+    def U_forward(cls):
+        """The unitary coordinate -> spin map of one tensor index:
+        u[+-] = (u[theta] +- 1j u[phi]) / sqrt(2), rows in spin order,
+        columns (phi, theta) (reference: core/coords.py:216)."""
+        Ui = {+1: np.array([+1j, 1]) / np.sqrt(2),
+              -1: np.array([-1j, 1]) / np.sqrt(2)}
+        return np.array([Ui[spin] for spin in cls.spin_ordering])

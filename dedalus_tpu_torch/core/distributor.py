@@ -1,6 +1,7 @@
 """
 Distributor: device placement and field factories (counterpart of
-dedalus_tpu/core/distributor.py, single-device path).
+dedalus_tpu/core/distributor.py, single-device path; Cartesian systems and
+the two-sphere).
 
 The distributor carries the torch device every field and solver array of
 the problem lives on. It defaults to `cuda` and raises when no CUDA device
@@ -106,6 +107,18 @@ class Distributor:
         return grid.reshape(shape)
 
     def local_grids(self, *bases, scales=None):
+        """Broadcast-shaped grids; a two-axis basis yields one grid per
+        sub-axis (`phi, theta = dist.local_grids(sphere)`)."""
         scales = self.remedy_scales(scales)
-        return tuple(self.local_grid(b, scales[self.get_axis(b.coord)])
-                     for b in bases)
+        out = []
+        for b in bases:
+            first = self.get_axis(b.coord)
+            if b.dim == 1:
+                out.append(self.local_grid(b, scales[first]))
+                continue
+            grids = b.global_grids(tuple(scales[first:first + b.dim]))
+            for sub, grid in enumerate(grids):
+                shape = [1] * self.dim
+                shape[first + sub] = grid.size
+                out.append(np.reshape(grid, shape))
+        return tuple(out)

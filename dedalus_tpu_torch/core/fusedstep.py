@@ -49,6 +49,12 @@ MAX_Q = 64
 _LIB = None
 _LIB_LOCK = threading.Lock()
 
+# the kernel library's entry point for each dtype it takes (complex data
+# as interleaved (re, im) pairs, torch's own layout)
+_ENTRY = {torch.float64: "banded_subst_f64", torch.float32: "banded_subst_f32",
+          torch.complex128: "banded_subst_c128",
+          torch.complex64: "banded_subst_c64"}
+
 
 def build_dir():
     """Where the kernel library is built: `$TORCH_EXTENSIONS_DIR/
@@ -111,7 +117,7 @@ def load_kernel_library():
             os.replace(tmp, target)
         lib = ctypes.CDLL(str(target))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        for name in ("banded_subst_f64", "banded_subst_f32"):
+        for name in _ENTRY.values():
             fn = getattr(lib, name)
             fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
             fn.restype = i32
@@ -202,10 +208,10 @@ def substitution_cuda(fsub, fp):
     q = last.shape[-1]
     NB = n_pad // q
     tensors = (fwd, bwd, last, f)
-    if any(t.dtype != fp.dtype for t in tensors) \
-            or fp.dtype not in (torch.float64, torch.float32):
+    if any(t.dtype != fp.dtype for t in tensors) or fp.dtype not in _ENTRY:
         raise ValueError("substitution_cuda: operators and right-hand side "
-                         "must share one dtype, float64 or float32")
+                         "must share one dtype, float64, float32, "
+                         "complex128 or complex64")
     if any(not t.is_contiguous() for t in tensors):
         raise ValueError("substitution_cuda: tensors must be contiguous")
     if q > MAX_Q:
@@ -223,8 +229,7 @@ def substitution_cuda(fsub, fp):
         raise ValueError("substitution_cuda: all tensors must be on one CUDA "
                          "device")
     lib = load_kernel_library()
-    fn = lib.banded_subst_f64 if fp.dtype == torch.float64 \
-        else lib.banded_subst_f32
+    fn = getattr(lib, _ENTRY[fp.dtype])
     out = torch.empty_like(f)
     stream = torch.cuda.current_stream(fp.device).cuda_stream
     with torch.cuda.device(fp.device):

@@ -1,6 +1,8 @@
 """
-Symbolic linear operators (counterpart of dedalus_tpu/core/operators.py,
-Cartesian subset).
+Symbolic linear operators (counterpart of dedalus_tpu/core/operators.py:
+the Cartesian operators, and the dispatch of grad, div, lap, skew and the
+integrals to the sphere's spin operators in core/polar.py and
+core/sphere.py).
 
 Design: every linear operator is described by a list of **terms**; each term
 is (tensor_factor, [axis_descriptor ...]) with one descriptor per distributor
@@ -10,6 +12,9 @@ axis. Descriptors:
   ('full', A)            dense matrix applied along the (coupled/constant) axis
   ('blocks', B)          per-group blocks B[g] (gs_out, gs_in) on a separable
                          axis (group-diagonal action)
+  ('gblocks', ax, B)     per-group blocks B[g] on a coupled axis, the group
+                         read from the separable axis `ax` (the sphere's
+                         per-m colatitude stacks)
 
 One descriptor set drives BOTH
   * host-side pencil matrix assembly (`subproblem_matrix`: kron of factors
@@ -25,7 +30,8 @@ from .field import Field
 from .future import Future, ev
 from .domain import Domain
 from .basis import Jacobi
-from .coords import CartesianCoordinates
+from .coords import CartesianCoordinates, S2Coordinates
+from .curvilinear import SpinBasisMixin, apply_group_stack
 from ..tools.array import (kron as sparse_kron, sparsify, apply_matrix_torch,
                             match_precision)
 from ..tools.exceptions import NonlinearOperatorError
@@ -114,6 +120,14 @@ def assemble_group_matrix(terms, operand_domain, tshape_in, tshape_out,
                             [sparsify(b) for b in descr[1]], format="csr"))
                 else:
                     factors.append(sparsify(descr[1][group[axis]]))
+            elif kind == "gblocks":
+                # per-group blocks on a coupled axis, the group read from
+                # a separable axis
+                _, group_axis, stack = descr
+                if group[group_axis] is None:
+                    raise NotImplementedError(
+                        "gblocks selected by a coupled axis.")
+                factors.append(sparsify(stack[group[group_axis]]))
             else:
                 raise ValueError(kind)
         mat = sparse_kron(*factors)
@@ -156,6 +170,11 @@ def apply_term(data, tensor_factor, axis_descrs, tshape_in, tshape_out, tdim_out
             out = apply_matrix_torch(descr[1], out, tdim_in + axis)
         elif kind == "blocks":
             out = apply_axis_blocks(out, descr[1], tdim_in + axis)
+        elif kind == "gblocks":
+            _, group_axis, stack = descr
+            gaxis = tdim_in + group_axis
+            width = out.shape[gaxis] // stack.shape[0]
+            out = apply_group_stack(out, stack, gaxis, tdim_in + axis, width)
     if tensor_factor is not None:
         out = apply_tensor_factor(out, tensor_factor, tshape_in, tshape_out)
     elif tshape_in != tuple(tshape_out):
@@ -329,15 +348,30 @@ class ConvertNode(LinearOperator):
         self.tensorsig = operand.tensorsig
         self.dtype = operand.dtype
 
+    def _build_terms(self, device):
+        """One descriptor per axis: Jacobi derivative-level lifts and
+        constant embeddings; a two-axis (sphere) basis converts only to an
+        equal one, the identity, and a constant embeds into it with one
+        descriptor per sub-axis."""
+        descrs = []
+        for axis, (b_in, b_out) in enumerate(zip(self.operand.domain.bases,
+                                                 self.target_bases)):
+            if b_in is not None and b_in.dim > 1:
+                if b_in is not b_out:
+                    b_in.check_conversion(b_out)
+                descrs.append(None)
+            elif b_in is None and b_out is not None and b_out.dim > 1:
+                descrs.append(b_out.constant_component_descr(
+                    axis - b_out.first_axis, device))
+            else:
+                descrs.append(_conversion_descr(b_in, b_out, device=device))
+        return [(None, descrs)]
+
     def terms(self):
-        return [(None, [_conversion_descr(b_in, b_out, device=False)
-                        for b_in, b_out in zip(self.operand.domain.bases,
-                                               self.target_bases)])]
+        return self._build_terms(device=False)
 
     def device_terms(self):
-        return [(None, [_conversion_descr(b_in, b_out, device=True)
-                        for b_in, b_out in zip(self.operand.domain.bases,
-                                               self.target_bases)])]
+        return self._build_terms(device=True)
 
 
 def _conversion_descr(b_in, b_out, device):
@@ -483,18 +517,52 @@ class IntegrateCartesian(LinearOperator):
         return [(None, descrs)]
 
 
+def _integrate(operand, coords):
+    """(integral, volume) of `operand` over `coords` (None: every axis it
+    has a basis on): a sphere basis integrates over both of its axes at
+    once (a spec naming only one of them is refused), then each interval
+    axis in turn (dedalus_tpu/core/operators.py:707-813)."""
+    coords = _resolve_coords(operand, coords)
+    out, volume = operand, 1.0
+    curv = next((b for b in operand.domain.bases
+                 if isinstance(b, SpinBasisMixin)), None)
+    if curv is not None:
+        cs_coords = curv.coordsystem.coords
+        selected = len(cs_coords) if coords is None \
+            else sum(c in cs_coords for c in coords)
+        if 0 < selected < len(cs_coords):
+            raise NotImplementedError(
+                f"Partial integration over a single coordinate of {curv!r} "
+                "is not supported; integrate over the full coordinate "
+                "system.")
+        if selected:
+            from .polar import PolarIntegrate
+            out, volume = PolarIntegrate(out), curv.volume
+    if coords is None:
+        coords = [b.coord for b in out.domain.bases if b is not None]
+    for coord in coords:
+        basis = out.domain.get_basis(coord)
+        if basis is not None:
+            volume *= basis.bounds[1] - basis.bounds[0]
+            out = IntegrateCartesian(out, coord)
+    return out, volume
+
+
 @parseable("integ", "Integrate")
 def Integrate(operand, coords=None):
     if np.isscalar(operand):
         return operand
-    coords = _resolve_coords(operand, coords)
-    out = operand
-    if coords is None:
-        coords = [b.coord for b in out.domain.bases if b is not None]
-    for coord in coords:
-        if out.domain.get_basis(coord) is not None:
-            out = IntegrateCartesian(out, coord)
-    return out
+    return _integrate(operand, coords)[0]
+
+
+@parseable("ave", "Average")
+def Average(operand, coords=None):
+    """Integral over the selected coordinates divided by their volume
+    (the sphere's area 4 pi r^2, an interval's length)."""
+    if np.isscalar(operand):
+        return operand
+    out, volume = _integrate(operand, coords)
+    return out / volume
 
 
 # ----------------------------------------------------------------------
@@ -760,17 +828,28 @@ class CartesianLaplacian(CartesianVectorOperator):
         self._build_metadata_common(operand, self.cs, tuple(operand.tensorsig))
 
 
+# grad, div and lap dispatch on the coordinate system: the sphere's to the
+# spin-ladder operators of core/polar.py (dedalus_tpu/core/operators.py:
+# 1185-1227)
+
 @parseable("grad", "Gradient")
 def Gradient(operand, cs=None):
     if np.isscalar(operand):
         return 0
-    return CartesianGradient(operand, cs or operand.dist.coordsystems[0])
+    cs = cs or operand.dist.coordsystems[0]
+    if isinstance(cs, S2Coordinates):
+        from .polar import PolarGradient
+        return PolarGradient(operand, cs)
+    return CartesianGradient(operand, cs)
 
 
 @parseable("div", "Divergence")
 def Divergence(operand, index=0):
     if np.isscalar(operand):
         return 0
+    if isinstance(operand.tensorsig[index], S2Coordinates):
+        from .polar import PolarDivergence
+        return PolarDivergence(operand, index)
     return CartesianDivergence(operand, index)
 
 
@@ -778,7 +857,41 @@ def Divergence(operand, index=0):
 def Laplacian(operand, cs=None):
     if np.isscalar(operand):
         return 0
+    s2 = cs or operand.dist.coordsystems[0]
+    if isinstance(s2, S2Coordinates):
+        from .polar import PolarLaplacian
+        return PolarLaplacian(operand, s2)
     return CartesianLaplacian(operand, cs)
+
+
+class Skew(LinearOperator):
+    """2D skew: (u, v) -> (-v, u) (reference: core/operators.py:2019)."""
+
+    name = "Skew"
+
+    def _build_metadata(self):
+        operand = self.args[0]
+        if operand.tensorsig[0].dim != 2:
+            raise ValueError("Skew requires a 2D vector.")
+        self.domain = operand.domain
+        self.tensorsig = tuple(operand.tensorsig)
+        self.dtype = operand.dtype
+
+    def terms(self):
+        operand = self.operand
+        rest = int(np.prod(operand.tshape[1:], dtype=int)) \
+            if operand.tshape[1:] else 1
+        R = np.array([[0.0, -1.0], [1.0, 0.0]])
+        return [(np.kron(R, np.identity(rest)), [None] * operand.domain.dim)]
+
+
+def SkewFactory(operand):
+    """skew(u): the spin form on a sphere basis (core/polar.PolarSkew),
+    else the Cartesian rotation (dedalus_tpu/core/operators.py:1339)."""
+    if any(isinstance(b, SpinBasisMixin) for b in operand.domain.bases):
+        from .polar import PolarSkew
+        return PolarSkew(operand)
+    return Skew(operand)
 
 
 # ----------------------------------------------------------------------

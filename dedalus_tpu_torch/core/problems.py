@@ -29,11 +29,13 @@ def _public_parseables():
     (reference: core/problems.py:28-33)."""
     from . import operators as ops
     from .arithmetic import DotProduct
+    from .sphere import MulCosine
     return {"Lift": ops.Lift, "Gradient": ops.Gradient,
             "Divergence": ops.Divergence, "Laplacian": ops.Laplacian,
             "Differentiate": ops.Differentiate,
             "UnaryGridFunction": ops.UnaryGridFunction,
-            "DotProduct": DotProduct, "dot": DotProduct}
+            "DotProduct": DotProduct, "dot": DotProduct,
+            "MulCosine": MulCosine}
 
 
 def _flatten_terms(expr):

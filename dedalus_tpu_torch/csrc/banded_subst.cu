@@ -11,6 +11,11 @@
 //   last:     x_{NB-1} = lastOp (q x q) @ w
 //   backward: x_i = BwdOp_i (q x 3q) @ [y_i; x_{i+1}; x_{i+2}]
 //
+// Element types: double, float, and complex<double> / complex<float> as
+// interleaved (re, im) pairs (torch's complex128 / complex64 layout): the
+// same grid, ring and chain, each operator word twice as wide and each
+// multiply-add a complex one (4 real FMAs).
+//
 // Layouts (all row-major, contiguous):
 //   fwd  (NB-1, G, 2q, 2q)   bwd (NB-1, G, q, 3q)   last (G, q, q)
 //   fp   (G, k, NB*q)        out (G, k, NB*q)
@@ -73,6 +78,7 @@
 // file beside the library):
 //   <double, 1>, <float, 1>    56 registers, 0 spills, 0 stack
 //   <double, 16>, <float, 16>  96 registers, 0 spills, 0 stack
+// (the complex instantiations' report is in the same file)
 // all with 2 named barriers and no static shared memory; the dynamic
 // shared memory (ring + vectors + y) is set per launch, up to 227 KB.
 
@@ -82,6 +88,44 @@
 #include <mutex>
 
 namespace {
+
+// A complex number as torch stores it: (re, im) interleaved, aligned to
+// its size so a row of them is a plain array for the bulk copies.
+template <typename R>
+struct alignas(2 * sizeof(R)) Cplx {
+  R re, im;
+  Cplx() = default;
+  __device__ __forceinline__ Cplx(R r) : re(r), im(R(0)) {}
+  __device__ __forceinline__ Cplx(R r, R i) : re(r), im(i) {}
+};
+
+template <typename R>
+__device__ __forceinline__ Cplx<R> operator+(Cplx<R> a, Cplx<R> b) {
+  return {a.re + b.re, a.im + b.im};
+}
+
+template <typename R>
+__device__ __forceinline__ Cplx<R>& operator+=(Cplx<R>& a, Cplx<R> b) {
+  a.re += b.re;
+  a.im += b.im;
+  return a;
+}
+
+template <typename R>
+__device__ __forceinline__ Cplx<R> operator*(Cplx<R> a, Cplx<R> b) {
+  return {fma(a.re, b.re, -a.im * b.im), fma(a.re, b.im, a.im * b.re)};
+}
+
+template <typename T>
+__device__ __forceinline__ T shfl_xor(T v, int b) {
+  return __shfl_xor_sync(0xffffffffu, v, b);
+}
+
+template <typename R>
+__device__ __forceinline__ Cplx<R> shfl_xor(Cplx<R> v, int b) {
+  return {__shfl_xor_sync(0xffffffffu, v.re, b),
+          __shfl_xor_sync(0xffffffffu, v.im, b)};
+}
 
 constexpr int kConsumerWarps = 8;
 constexpr int kConsumerThreads = 32 * kConsumerWarps;
@@ -231,7 +275,7 @@ struct ColumnReduce {
     for (int j = 0; j < N / 2; ++j) {
       const T send = up ? a[j] : a[j + N / 2];
       const T keep = up ? a[j + N / 2] : a[j];
-      a[j] = keep + __shfl_xor_sync(0xffffffffu, send, b);
+      a[j] = keep + shfl_xor(send, b);
     }
     if (up) col += N / 2;
     ColumnReduce<N / 2, T>::run(a, lane, b >> 1, col);
@@ -241,7 +285,7 @@ struct ColumnReduce {
 template <typename T>
 struct ColumnReduce<1, T> {
   static __device__ __forceinline__ void run(T* a, int, int b, int&) {
-    for (; b > 0; b >>= 1) a[0] += __shfl_xor_sync(0xffffffffu, a[0], b);
+    for (; b > 0; b >>= 1) a[0] += shfl_xor(a[0], b);
   }
 };
 
@@ -279,7 +323,7 @@ __device__ __forceinline__ void panel_matvec_1(const T* A, int rows, int cols,
   }
   acc0 += acc1;
   for (int b = tpr >> 1; b > 0; b >>= 1)
-    acc0 += __shfl_xor_sync(0xffffffffu, acc0, b);
+    acc0 += shfl_xor(acc0, b);
   if (row < rows && s == 0) sink(panel_row0 + row, 0, acc0);
 }
 
@@ -590,6 +634,27 @@ int banded_subst_f32(const float* fwd, const float* bwd, const float* last,
                      int q, void* stream) {
   return launch<float>(fwd, bwd, last, fp, out, G, ncols, NB, q,
                        static_cast<cudaStream_t>(stream));
+}
+
+// complex128 / complex64: interleaved (re, im) pairs
+int banded_subst_c128(const void* fwd, const void* bwd, const void* last,
+                      const void* fp, void* out, int G, int ncols, int NB,
+                      int q, void* stream) {
+  using C = Cplx<double>;
+  return launch<C>(static_cast<const C*>(fwd), static_cast<const C*>(bwd),
+                   static_cast<const C*>(last), static_cast<const C*>(fp),
+                   static_cast<C*>(out), G, ncols, NB, q,
+                   static_cast<cudaStream_t>(stream));
+}
+
+int banded_subst_c64(const void* fwd, const void* bwd, const void* last,
+                     const void* fp, void* out, int G, int ncols, int NB,
+                     int q, void* stream) {
+  using C = Cplx<float>;
+  return launch<C>(static_cast<const C*>(fwd), static_cast<const C*>(bwd),
+                   static_cast<const C*>(last), static_cast<const C*>(fp),
+                   static_cast<C*>(out), G, ncols, NB, q,
+                   static_cast<cudaStream_t>(stream));
 }
 
 // The launch shape chosen for a solve on the current device, for reports:

@@ -7,10 +7,13 @@ flagship configuration (reference:
 examples/ivp_2d_rayleigh_benard/rayleigh_benard.py), the small 2-D
 nonlinear heat IVP with tau lines, and the boundary and eigenvalue
 problems of the JAX package's examples and tests: the Poisson LBVP
-(examples/poisson.py), the Bratu and sin-Jacobi NLBVPs, the
+(examples/poisson.py, real or on a complex ComplexFourier carrier), the Bratu and sin-Jacobi NLBVPs, the
 Rayleigh-Benard onset EVP (examples/rayleigh_benard_evp.py) and the
-waves-on-a-string EVP (examples/waves_on_a_string.py). Each builds on
-`device` (default `cuda`; pass "cpu" to run on the host).
+waves-on-a-string EVP (examples/waves_on_a_string.py); and the
+progression's sphere shallow-water IVP (benchmarks/progression.py
+build_shallow_water, with the balanced-height LBVP of
+examples/shallow_water.py). Each builds on `device` (default `cuda`; pass
+"cpu" to run on the host).
 """
 
 import numpy as np
@@ -153,18 +156,21 @@ def build_tau_ivp(Nx=16, Nz=8, cadence=100, matsolver=None,
     return solver, u, x, z
 
 
-def build_poisson_solver(Nx, Ny, matsolver=None, device=None):
+def build_poisson_solver(Nx, Ny, matsolver=None, device=None,
+                         dtype=np.float64):
     """2-D Poisson LBVP of examples/poisson.py (reference:
     examples/lbvp_2d_poisson): lap(u) = f, u(y=0) = g, dy(u)(y=Ly) = h on
-    RealFourier(Nx) x ChebyshevT(Ny) over (0, 2 pi) x (0, pi), f random
+    Fourier(Nx) x ChebyshevT(Ny) over (0, 2 pi) x (0, pi), f random
     from seed 40 low-passed to (Nx/4, Ny/4) modes, g = 0.025 sin(8x),
-    h = 0. Returns (solver, fields) with fields {u, tau_1, tau_2, f, g,
-    h}; the solver is built, not yet solved."""
+    h = 0. A complex `dtype` takes the ComplexFourier carrier, whose
+    pencils are complex (a banded solve runs the complex substitution).
+    Returns (solver, fields) with fields {u, tau_1, tau_2, f, g, h}; the
+    solver is built, not yet solved."""
     import dedalus_tpu_torch.public as d3
     Lx, Ly = 2 * np.pi, np.pi
     coords = d3.CartesianCoordinates("x", "y")
-    dist = d3.Distributor(coords, dtype=np.float64, device=device)
-    xbasis = d3.RealFourier(coords["x"], size=Nx, bounds=(0, Lx))
+    dist = d3.Distributor(coords, dtype=dtype, device=device)
+    xbasis = d3.Fourier(coords["x"], size=Nx, bounds=(0, Lx), dtype=dtype)
     ybasis = d3.ChebyshevT(coords["y"], size=Ny, bounds=(0, Ly))
     u = dist.Field(name="u", bases=(xbasis, ybasis))
     tau_1 = dist.Field(name="tau_1", bases=xbasis)
@@ -322,3 +328,73 @@ def build_waves_evp(N, device=None):
     problem.add_equation("u(x=0) = 0")
     problem.add_equation("u(x=Lx) = 0")
     return problem.build_solver(), u
+
+
+def build_shallow_water(Nphi, Ntheta, dtype, matsolver=None, balance=True,
+                        device=None):
+    """
+    Rotating shallow water on the sphere (the Galewsky et al. 2004
+    unstable jet; the JAX package's benchmarks/progression.py:133
+    build_shallow_water, reference: examples/ivp_sphere_shallow_water/
+    shallow_water.py): SphereBasis (Nphi, Ntheta), dealias 3/2, RK222,
+    nondimensional units R = 1, hour = 1 (raw SI units put the
+    hyperdiffusion entries at the f32 denormal boundary). The Coriolis
+    term MulCosine(Skew(u)) couples ell +- 1 within each m group.
+
+    With `balance` the height starts from the balanced-height LBVP of
+    examples/shallow_water.py:53-61, g lap(h) + c = -div(u@grad(u) +
+    2 Omega zcross(u)), ave(h) = 0, solved once, before the perturbation
+    is added; without it h is the perturbation alone, as the JAX builder
+    sets it. Returns (solver, dt, balance_solver): dt is 300 s in
+    simulation units; balance_solver is the solved LBVP (None without
+    `balance`).
+    """
+    import dedalus_tpu_torch.public as d3
+    meter = 1 / 6.37122e6
+    hour = 1
+    second = hour / 3600
+    R = 6.37122e6 * meter
+    Omega = 7.292e-5 / second
+    nu = 1e5 * meter ** 2 / second / 32 ** 2  # hyperdiffusion matched at ell=32
+    g = 9.80616 * meter / second ** 2
+    H = 1e4 * meter
+    coords = d3.S2Coordinates("phi", "theta")
+    dist = d3.Distributor(coords, dtype=dtype, device=device)
+    basis = d3.SphereBasis(coords, shape=(Nphi, Ntheta), dtype=dtype,
+                           radius=R, dealias=3 / 2)
+    u = dist.VectorField(coords, name="u", bases=basis)
+    h = dist.Field(name="h", bases=basis)
+    zcross = lambda A: d3.MulCosine(d3.Skew(A))  # noqa: E731
+    phi, theta = dist.local_grids(basis)
+    lat = np.pi / 2 - theta + 0 * phi
+    umax = 80 * meter / second  # reference: shallow_water.py:44
+    lat0, lat1 = np.pi / 7, np.pi / 2 - np.pi / 7
+    en = np.exp(-4 / (lat1 - lat0) ** 2)
+    jet = (lat0 <= lat) * (lat <= lat1)
+    u_jet = umax / en * np.exp(1 / ((lat[jet] - lat0) * (lat[jet] - lat1)))
+    ug = np.zeros_like(np.broadcast_to(lat, (Nphi, Ntheta)))
+    ug = np.array([ug, 0 * ug])
+    ug[0][jet] = u_jet
+    u["g"] = ug
+    hpert = 120 * meter * np.cos(lat) * np.exp(-(phi / (1 / 3)) ** 2) \
+        * np.exp(-((np.pi / 4 - lat) / (1 / 15)) ** 2)
+    balance_solver = None
+    if balance:
+        c = dist.Field(name="c")
+        problem = d3.LBVP([h, c], namespace=locals())
+        problem.add_equation(
+            "g*lap(h) + c = - div(u@grad(u) + 2*Omega*zcross(u))")
+        problem.add_equation("ave(h) = 0")
+        balance_solver = problem.build_solver()
+        balance_solver.solve()
+        h["g"] = h["g"] + hpert
+    else:
+        h["g"] = hpert
+    problem = d3.IVP([u, h], namespace=locals())
+    problem.add_equation(
+        "dt(u) + nu*lap(lap(u)) + g*grad(h) + 2*Omega*zcross(u) "
+        "= - u@grad(u)")
+    problem.add_equation("dt(h) + nu*lap(lap(h)) + H*div(u) = - div(u*h)")
+    kw = {"matsolver": matsolver} if matsolver else {}
+    solver = problem.build_solver(d3.RK222, **kw)
+    return solver, 300.0 * second, balance_solver

@@ -3,17 +3,18 @@ User-facing API: `import dedalus_tpu_torch.public as d3`
 (counterpart of dedalus_tpu/public.py; reference: dedalus/public.py:4-14).
 """
 
-from .core.coords import Coordinate, CartesianCoordinates
+from .core.coords import Coordinate, CartesianCoordinates, S2Coordinates
 from .core.distributor import Distributor
 from .core.domain import Domain
 from .core.basis import (Jacobi, ChebyshevT, Legendre, RealFourier,
                          ComplexFourier, Fourier)
+from .core.sphere import SphereBasis, MulCosine
 from .core.field import Field
 from .core.problems import IVP, LBVP, NLBVP, EVP
 from .core.operators import (
-    AdvectiveCFL, Differentiate, Convert, Interpolate, Integrate, Lift,
-    Gradient, Divergence, Laplacian, Trace, TimeDerivative,
-    UnaryGridFunction, dt)
+    AdvectiveCFL, Differentiate, Convert, Interpolate, Integrate, Average,
+    Lift, Gradient, Divergence, Laplacian, SkewFactory as Skew, Trace,
+    TimeDerivative, UnaryGridFunction, dt)
 from .core.arithmetic import Add, Multiply, DotProduct, Power
 from .core.timesteppers import (schemes, add_scheme, MultistepIMEX,
                                 RungeKuttaIMEX, CNAB1, SBDF1, CNAB2, MCNAB2,
@@ -36,6 +37,8 @@ div = Divergence
 lap = Laplacian
 trace = Trace
 integ = Integrate
+ave = Average
+skew = Skew
 lift = Lift
 interp = Interpolate
 convert = Convert

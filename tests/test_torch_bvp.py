@@ -4,12 +4,13 @@ LinearBoundaryValueSolver, NLBVP and its Newton iteration, Frechet
 differentials and Power) held against the JAX package on the CPU:
 
   * the LBVPs of the JAX package's tests/test_lbvp.py, the Poisson
-    example and a complex 1-D problem assemble bit-equal L stores
-    (np.array_equal), dense and forced banded, and the same valid-row
-    masks;
+    example, a complex 1-D problem and the complex ComplexFourier x
+    ChebyshevT Poisson assemble bit-equal L stores (np.array_equal),
+    dense and forced banded, and the same valid-row masks;
   * their solutions agree to 1e-12 relative, dense and banded, and again
     when the port solves the L carried from the JAX solver
-    (tools/carry.py);
+    (tools/carry.py); on the card (marker `cuda`) the complex Poisson
+    forced banded solves through the complex kernel, as on the CPU;
   * the NLBVPs (sin-Jacobi of tests/test_nlbvp.py at dealias 1 and 1.5,
     Bratu N = 32, dense and banded) take the same number of Newton
     iterations; every Newton step taken from the JAX iterate lands within
@@ -166,13 +167,14 @@ def conditioned_bcs(d3, pairs=1):
     return problem
 
 
-def poisson_example(d3):
+def poisson_example(d3, dtype=np.float64):
     """examples/poisson.py at 32x16 (the port's build_poisson_solver
-    makes the same problem)."""
+    makes the same problem); a complex dtype takes the ComplexFourier
+    carrier, so its banded solve runs the complex substitution."""
     coords = d3.CartesianCoordinates("x", "y")
-    dist = d3.Distributor(coords, dtype=np.float64, **dist_kw(d3))
+    dist = d3.Distributor(coords, dtype=dtype, **dist_kw(d3))
     Lx, Ly = 2 * np.pi, np.pi
-    xbasis = d3.RealFourier(coords["x"], size=32, bounds=(0, Lx))
+    xbasis = d3.Fourier(coords["x"], size=32, bounds=(0, Lx), dtype=dtype)
     ybasis = d3.ChebyshevT(coords["y"], size=16, bounds=(0, Ly))
     u = dist.Field(name="u", bases=(xbasis, ybasis))
     tau_1 = dist.Field(name="tau_1", bases=xbasis)
@@ -220,6 +222,8 @@ def complex_1d(d3):
 LBVPS = {
     "poisson1d": poisson_1d,
     "complex": complex_1d,
+    "complex_poisson_example": lambda d3: poisson_example(d3,
+                                                         np.complex128),
     "poisson2d": poisson_2d,
     "ncc": ncc_lbvp,
     "vector": vector_lbvp,
@@ -316,6 +320,42 @@ def test_carried_L_solution_matches_jax(name, path):
     js.solve()
     ts.solve()
     assert rel_err(solution(ts), solution(js)) <= RTOL
+
+
+def test_complex_poisson_builder_matches_jax():
+    """extras/bench_problems.py build_poisson_solver with complex128,
+    forced banded at 32x16, solves the JAX package's complex Poisson to
+    1e-12 (the complex substitution's plain version on the CPU)."""
+    js = poisson_example(jd3, np.complex128).build_solver(
+        matsolver="banded")
+    ts, fields = tbench.build_poisson_solver(32, 16, "banded", device="cpu",
+                                             dtype=np.complex128)
+    assert ts.ops.kind == js.ops.kind == "banded"
+    js.solve()
+    ts.solve()
+    assert rel_err(solution(ts), solution(js)) <= RTOL
+
+
+@pytest.mark.cuda
+def test_complex_banded_lbvp_solves_on_card():
+    """Repair test: a complex LBVP forced onto the banded path solves on
+    the card (it raised ValueError in substitution_cuda before the
+    kernel had complex instantiations), and its solution equals the CPU
+    solve's to 1e-12."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    from dedalus_tpu_torch.core import fusedstep
+    out = {}
+    for device in ("cuda", "cpu"):
+        before = fusedstep.LAUNCHES["banded_subst"]
+        ts, fields = tbench.build_poisson_solver(64, 32, "banded",
+                                                 device=device,
+                                                 dtype=np.complex128)
+        ts.solve()
+        launched = fusedstep.LAUNCHES["banded_subst"] - before
+        assert launched > 0 if device == "cuda" else launched == 0
+        out[device] = solution(ts)
+    assert rel_err(out["cuda"], out["cpu"]) <= RTOL
 
 
 def test_exact_solutions():

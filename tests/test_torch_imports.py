@@ -33,7 +33,11 @@ def test_scan_covers_the_package():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     for must in ("chip_smoke.py", "dedalus_tpu_torch/core/fusedstep.py",
                  "dedalus_tpu_torch/libraries/pencilops.py",
-                 "dedalus_tpu_torch/public.py"):
+                 "dedalus_tpu_torch/public.py",
+                 "dedalus_tpu_torch/core/curvilinear.py",
+                 "dedalus_tpu_torch/core/polar.py",
+                 "dedalus_tpu_torch/core/sphere.py",
+                 "dedalus_tpu_torch/libraries/sphere.py"):
         assert must in names
 
 

@@ -89,6 +89,47 @@ def test_kernel_matches_plain_on_card(G, NB, q, k, dtype):
     assert float(err) <= (1e-12 if dtype == torch.float64 else 1e-5)
 
 
+def complex_fsub(rng, G, NB, q, device, dtype):
+    """Random complex operators: independent real and imaginary parts,
+    each scaled as in random_fsub, so |entries| match the real case up
+    to sqrt(2)."""
+    re, im = random_fsub(rng, G, NB, q), random_fsub(rng, G, NB, q)
+    return {k: torch.complex(torch.as_tensor(re[k]), torch.as_tensor(im[k]))
+            .to(device=device, dtype=dtype) / np.sqrt(2)
+            for k in re}
+
+
+# the complex instantiations at q = 6 and q = 7 (odd: BwdOp slabs that
+# are not 16-byte multiples in complex64), one column and the k = 16
+# Woodbury form, fewer and more groups than the card's SMs, and the
+# complex Poisson 1024x512's own shape (q = 3, NB = 172, G = 1024)
+COMPLEX_SHAPES = [(4, 9, 6, 1), (1024, 40, 6, 1), (3, 8, 6, 16),
+                  (5, 11, 7, 1), (256, 30, 7, 1), (4, 6, 7, 16),
+                  (1024, 172, 3, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.complex128, torch.complex64])
+@pytest.mark.parametrize("G,NB,q,k", COMPLEX_SHAPES)
+def test_complex_kernel_matches_plain_on_card(G, NB, q, k, dtype):
+    """Complex CUDA kernel vs plain version on the card (bound: 1e-12
+    relative in complex128, 1e-5 in complex64, as for f64/f32)."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    rng = np.random.default_rng(17)
+    fsub = complex_fsub(rng, G, NB, q, "cuda", dtype)
+    shape = (G, NB * q) if k == 1 else (G, k, NB * q)
+    fp = torch.complex(torch.as_tensor(rng.standard_normal(shape)),
+                       torch.as_tensor(rng.standard_normal(shape)))
+    fp = fp.to("cuda", dtype)
+    out = tfused.substitution_cuda(fsub, fp)
+    ref = tfused.substitution_plain(fsub, fp)
+    torch.cuda.synchronize()
+    assert out.shape == fp.shape and out.dtype == dtype
+    err = (out - ref).abs().max() / ref.abs().max()
+    assert float(err) <= (1e-12 if dtype == torch.complex128 else 1e-5)
+
+
 def test_single_block_row_is_one_product():
     """NB == 1 (no FwdOp): the solve is lastOp @ f."""
     rng = np.random.default_rng(9)
@@ -100,17 +141,23 @@ def test_single_block_row_is_one_product():
 
 
 @pytest.mark.parametrize("bad,match", [
-    ("dtype", "dtype"), ("contiguity", "contiguous"), ("q", "limit"),
+    ("dtype", "dtype"), ("half", "dtype"), ("contiguity", "contiguous"),
+    ("q", "limit"),
     ("shape", "shapes"), ("device", "CUDA device")])
 def test_wrapper_checks_refuse_bad_input(bad, match):
-    """The wrapper checks dtype, contiguity, the q <= 64 limit, shapes and
-    (last) the device before it builds or launches anything."""
+    """The wrapper checks dtype (one of float64, float32, complex128,
+    complex64, shared by all inputs), contiguity, the q <= 64 limit,
+    shapes and (last) the device before it builds or launches
+    anything."""
     rng = np.random.default_rng(13)
     q = 80 if bad == "q" else 4
     fsub = torch_fsub(random_fsub(rng, 2, 3, q))
     fp = torch.as_tensor(rng.standard_normal((2, 3 * q)))
     if bad == "dtype":
         fp = fp.float()
+    elif bad == "half":
+        fp = fp.half()
+        fsub = {k: v.half() for k, v in fsub.items()}
     elif bad == "contiguity":
         fsub["BwdOp"] = fsub["BwdOp"].transpose(0, 1).contiguous().transpose(0, 1)
     elif bad == "shape":

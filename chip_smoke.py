@@ -97,7 +97,28 @@ Phases (each prints its own lines; any failure exits non-zero):
      4.3 GB) the Poisson phase's timings, launches and checks, all to
      1e-12; the complex kernel vs plain at its factor's operators in
      complex128 (1e-12) and complex64 (1e-5).
- 14. The kernels line, the card line, and the result line.
+ 14. rb3d_128 (benchmarks/progression.py config 5 on one card: 3-D
+     Rayleigh-Benard, RealFourier^2 x ChebyshevT 128x128x64, RK222, dt =
+     1e-3, through extras/bench_problems.py build_rb3d; 'auto' takes the
+     banded path, q = 80): 16x16x32 forced banded card vs CPU (p, b, u to
+     1e-12, the taus to 1e-12 of the state); build with its phases, the
+     factor, RB3D_STEPS timed steps after the factoring first one,
+     launches = 1 + 4 x (1 + RB3D_STEPS), no host sync in a steady step,
+     peak memory, BCs and incompressibility to 1e-10; the kernel at this
+     factor's operators (q = 80, f64, k = 1 and the Woodbury k = pins);
+     the breakdown without a second factor.
+ 15. The complex128 IVP of build_complex_ivp (ComplexFourier x
+     ChebyshevT, a b*b term, taus) at 1024x512 under 'auto' (banded, q =
+     3): 32x16 forced banded card vs CPU to 1e-12, CIVP_STEPS timed steps,
+     launches = 1 + 4 x (1 + CIVP_STEPS), no host sync, a finite state.
+     Phases 3, 5, 6, 12 and 14 also take the same steps from the same
+     state as a loop of step and as step_many, the step recorded once as
+     a CUDA graph and replayed (core/stepgraph.py): the states must be
+     bit-equal (else within 1e-13), the replayed block records nothing,
+     the launches equal the loop's, no host sync in a replayed block;
+     steps/s of both and the idle share of a step in each
+     (extras/profile_step.py).
+ 16. The kernels line, the card line, and the result line.
 
 Each phase prints its seconds and one JSON record on its own line.
 
@@ -126,12 +147,24 @@ BOUND = {"float64": 1e-12, "float32": 1e-5, "complex128": 1e-12,
          "complex64": 1e-5}
 # bytes written between cold launches: more than the H100's 50 MB L2
 FLUSH_BYTES = 64 * 2 ** 20
+# operator stores up to this size are copied flat for the torch.sum
+# yardstick (rb3d_128's 23.5 GB are summed per tensor instead)
+STREAM_COPY_BYTES = 4 * 10 ** 9
 # warm Poisson solves timed per run (the median is reported)
 POISSON_SOLVES = 25
 # the sphere phase: progression config 4's size, and the timed steps
 # after the factoring first one
 SW_SIZE = (512, 256)
 SW_STEPS = 20
+# 3-D Rayleigh-Benard (progression config 5, one card) and its timed
+# steps after the factoring first one; the small size of its card vs CPU
+# check
+RB3D_SIZE = (128, 128, 64)
+RB3D_STEPS = 10
+RB3D_SMALL = (16, 16, 32)
+# the complex IVP (build_complex_ivp) and its timed steps
+CIVP_SIZE = (1024, 512)
+CIVP_STEPS = 20
 RESULTS = {}
 
 
@@ -219,11 +252,13 @@ def check_kernel(label, fsub, fp):
     cold_ms = cold_median_ms(launch)
     plain_ms = median_ms(lambda: fusedstep.substitution_plain(fsub, fp))
     # the read-bandwidth yardstick: one torch.sum over a flat copy of the
-    # operator bytes (timed here only; the port never calls it)
-    flat = torch.cat([fsub[k].reshape(-1)
-                      for k in ("FwdOp", "BwdOp", "lastOp")])
-    stream_ms = median_ms(lambda: torch.sum(flat))
-    del flat
+    # operator bytes (timed here only; the port never calls it); above
+    # STREAM_COPY_BYTES, no copy: one torch.sum per operator tensor
+    parts = [fsub[k].reshape(-1) for k in ("FwdOp", "BwdOp", "lastOp")]
+    if sum(t.numel() * t.element_size() for t in parts) <= STREAM_COPY_BYTES:
+        parts = [torch.cat(parts)]
+    stream_ms = median_ms(lambda: [torch.sum(t) for t in parts])
+    del parts
     nbytes, flops = subst_cost(fsub, fp)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -266,7 +301,7 @@ def random_fsub(G, NB, q, dtype, seed, k=1):
 
 def rb_checks(label, solver, b):
     """Finite state, boundary conditions and the incompressibility
-    equation of an RB solver on the card."""
+    equation of an RB solver (2-D or 3-D, z last) on the card."""
     import torch
     import numpy as np
     import dedalus_tpu_torch.public as d3
@@ -284,8 +319,8 @@ def rb_checks(label, solver, b):
         "u(z=Lz)": float(np.max(np.abs(
             d3.Interpolate(u, "z", 1.0).evaluate()["g"]))),
     }
-    _, ez = u.tensorsig[0].unit_vector_fields(u.dist)
-    lift_basis = u.domain.bases[1].derivative_basis(1)
+    ez = u.tensorsig[0].unit_vector_fields(u.dist)[-1]
+    lift_basis = u.domain.bases[-1].derivative_basis(1)
     grad_u = d3.grad(u) + ez * d3.Lift(tau_u1, lift_basis, -1)
     resid = (d3.trace(grad_u) + tau_p).evaluate()["c"]
     errs["trace(grad_u)+tau_p (rel)"] = float(
@@ -297,12 +332,14 @@ def rb_checks(label, solver, b):
     return errs
 
 
-def breakdown(label, solver, dt, reps):
+def breakdown(label, solver, dt, reps, factor=True):
     """Per-layer device times (median ms, CUDA events) of the pieces one
     step is made of, on the solver's current state: one stage's RHS
     evaluation and L matvec, one solve with its refinement sweep, one
     substitution kernel launch, the state scatter/gather, a dealiased
-    transform roundtrip of the state, one factorization, and one step."""
+    transform roundtrip of the state, one factorization (unless `factor`
+    is False: a second factor store would not fit beside the first), and
+    one step."""
     from dedalus_tpu_torch.core import fusedstep
     from dedalus_tpu_torch.core.subsystems import gather_state, scatter_state
     ops, X = solver.ops, solver.X
@@ -322,11 +359,12 @@ def breakdown(label, solver, dt, reps):
             reps=reps),
         "transform_roundtrip": median_ms(solver.enforce_hermitian_symmetry,
                                          reps=reps),
-        "factor": median_ms(lambda: ops.factor_lincomb(
-            1.0, M, dt * solver.timestepper.uniq_H_diag[0], L),
-            reps=3, warm=1),
-        "step": median_ms(lambda: solver.step(dt), reps=reps, warm=1),
     }
+    if factor:
+        out["factor"] = median_ms(lambda: ops.factor_lincomb(
+            1.0, M, dt * solver.timestepper.uniq_H_diag[0], L),
+            reps=3, warm=1)
+    out["step"] = median_ms(lambda: solver.step(dt), reps=reps, warm=1)
     log(f"breakdown {label} ms " + json.dumps(out))
     return out
 
@@ -745,6 +783,7 @@ def kdv_phase(N, steps):
     rec["steps_per_s"] = steps_per_s(solver, dt, steps)
     check_no_host_syncs(f"kdv{N}", rec, solver, dt)
     rec["factorizations"] = solver.timestepper.factorizations
+    rec["step_many"] = step_many_check(f"kdv{N}", solver, dt, 80, 20)
     rec["mass_drift_rel"] = abs(mass() - mass0) / abs(mass0)
     rec["max_memory_allocated_GB"] = torch.cuda.max_memory_allocated() / 1e9
     if not bool(torch.isfinite(solver.X).all()):
@@ -798,6 +837,7 @@ def shear_phase(N, steps, cfl_steps):
     rec["warm_10_steps_s"] = time.perf_counter() - t0
     rec["steps_per_s"] = steps_per_s(solver, dt, steps)
     check_no_host_syncs(f"shear{N}", rec, solver, dt)
+    rec["step_many"] = step_many_check(f"shear{N}", solver, dt, 50, 10)
     rec["max_memory_allocated_GB"] = torch.cuda.max_memory_allocated() / 1e9
     if not bool(torch.isfinite(solver.X).all()):
         fail("shear: non-finite state")
@@ -931,6 +971,8 @@ def sw_phase(Nphi, Ntheta, steps):
         fail(f"sw{Nphi}x{Ntheta}: {rec['launches']} kernel launches, "
              f"expected {rec['expected_launches']}")
     check_no_host_syncs(f"sw{Nphi}x{Ntheta}", rec, solver, dt)
+    rec["step_many"] = step_many_check(f"sw{Nphi}x{Ntheta}", solver, dt, 20,
+                                       5)
     hmax = float(np.abs(h["g"]).max())
     rec["mass_drift / (4 pi max|h|)"] = abs(mass() - mass0) \
         / (4 * np.pi * hmax)
@@ -992,6 +1034,267 @@ def complex_phase(Nx, Ny):
                              for k, v in fsub.items()},
                             fp.to(torch.complex64))]
     return rec, kernels
+
+
+HISTORIES = ("F_hist", "MX_hist", "LX_hist")
+
+
+def snapshot(solver):
+    """The solver's stepping state on the card (state, time, counters,
+    the multistep histories), to take the same steps twice."""
+    ts = solver.timestepper
+    return {"X": solver.X.clone(), "sim_time": solver.sim_time,
+            "iteration": solver.iteration, "ts_iteration": ts.iteration,
+            "dt_hist": list(getattr(ts, "dt_hist", [])),
+            "hists": [h.clone() for name in HISTORIES
+                      for h in getattr(ts, name, [])]}
+
+
+def restore(solver, snap):
+    """Put a snapshot back, the histories into their own buffers."""
+    ts = solver.timestepper
+    solver.X = snap["X"].clone()
+    solver.defer_scatter(solver.X)
+    solver.snapshot_versions()
+    solver.sim_time = snap["sim_time"]
+    solver.iteration = snap["iteration"]
+    ts.iteration = snap["ts_iteration"]
+    if hasattr(ts, "dt_hist"):
+        ts.dt_hist = list(snap["dt_hist"])
+    live = [h for name in HISTORIES for h in getattr(ts, name, [])]
+    for h, saved in zip(live, snap["hists"]):
+        h.copy_(saved)
+
+
+def reset_launches():
+    from dedalus_tpu_torch.core import fusedstep
+    for name in fusedstep.LAUNCHES:
+        fusedstep.LAUNCHES[name] = 0
+
+
+def step_many_check(label, solver, dt, n, prof_steps):
+    """The same n steps from the same state as a loop of step and as
+    step_many (the step recorded as a CUDA graph and replayed): the
+    states must be bit-equal, else within 1e-13 relative; the block runs
+    twice, the second time replaying the recording of the first (it must
+    record nothing). Steps/s of the loop and of the replayed block, the
+    recording block's seconds, the kernel's launches in each run (equal),
+    host syncs of a replayed block (0), and the idle share of a step in a
+    loop and in a block (torch.profiler, extras/profile_step.py). The
+    window must not reach an iteration where either run re-projects."""
+    import torch
+    from dedalus_tpu_torch.core import fusedstep
+    from dedalus_tpu_torch.extras.profile_step import profile_solver
+    ts = solver.timestepper
+    cadence = solver.enforce_real_cadence
+    r = solver.iteration % cadence if cadence else 0
+    if cadence and (r < ts.steps or cadence - r < n):
+        fail(f"{label} step_many: iterations {solver.iteration}.."
+             f"{solver.iteration + n} reach the re-projection cadence")
+    snap = snapshot(solver)
+    runs = {}
+    for run in ("loop", "record", "replay"):
+        if run != "loop":
+            restore(solver, snap)
+        recordings = ts.recordings
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if run == "loop":
+            for _ in range(n):
+                solver.step(dt)
+        else:
+            solver.step_many(n, dt)
+        torch.cuda.synchronize()
+        runs[run] = {"s": time.perf_counter() - t0,
+                     "launches": fusedstep.LAUNCHES["banded_subst"],
+                     "recordings": ts.recordings - recordings,
+                     "X": solver.X.clone()}
+    ref = runs["loop"]["X"]
+    rec = {"steps": n, "start_iteration": snap["iteration"],
+           "loop_steps_per_s": n / runs["loop"]["s"],
+           "block_steps_per_s": n / runs["replay"]["s"],
+           "record_block_s": runs["record"]["s"],
+           "launches": {k: v["launches"] for k, v in runs.items()},
+           "recordings": {k: v["recordings"] for k, v in runs.items()}}
+    for run in ("record", "replay"):
+        X = runs[run]["X"]
+        rec[f"{run}_bit_equal"] = bool(torch.equal(X, ref))
+        rec[f"{run}_max_rel_diff"] = float(
+            (X - ref).abs().max() / ref.abs().max())
+    rec["block_speedup"] = rec["block_steps_per_s"] / rec["loop_steps_per_s"]
+    rec["host_syncs_per_block"], rec["host_sync_messages"] = host_syncs(
+        lambda: solver.step_many(n, dt), 1)
+    rec["profile_loop"] = profile_solver(solver, dt, prof_steps, warm=1)
+    rec["profile_block"] = profile_solver(solver, dt, prof_steps, warm=1,
+                                          block=True)
+    log(f"{label} step_many vs step " + json.dumps(rec))
+    bad = []
+    if rec["recordings"] != {"loop": 0, "record": 1, "replay": 0}:
+        bad.append(f"recordings {rec['recordings']}")
+    if len(set(rec["launches"].values())) != 1:
+        bad.append(f"launches {rec['launches']}")
+    for run in ("record", "replay"):
+        if not rec[f"{run}_max_rel_diff"] <= 1e-13:
+            bad.append(f"{run} differs from the loop by "
+                       f"{rec[f'{run}_max_rel_diff']:.3e}")
+    if rec["host_syncs_per_block"]:
+        bad.append(f"host syncs {rec['host_sync_messages']}")
+    if bad:
+        fail(f"{label} step_many: {bad}")
+    return rec
+
+
+def rb3d_card_vs_cpu(sizes, steps):
+    """3-D RB forced banded at a small size on the card and on the CPU
+    (held against the JAX package by tests/test_torch_rb3d.py): p, b and
+    u within 1e-12 relative each, the taus within 1e-12 of the largest
+    state entry (a tau of the mean mode can sit at round-off level)."""
+    import numpy as np
+    from dedalus_tpu_torch.extras.bench_problems import build_rb3d
+    out = {}
+    for device in ("cuda", "cpu"):
+        solver, dt = build_rb3d(*sizes, np.float64, matsolver="banded",
+                                device=device)
+        for _ in range(steps):
+            solver.step(dt)
+        out[device] = ({v.name: np.asarray(v["c"]) for v in solver.variables},
+                       float(solver.X.abs().max()))
+    scale = out["cpu"][1]
+    errs = {}
+    for name, ref in out["cpu"][0].items():
+        diff = np.max(np.abs(out["cuda"][0][name] - ref))
+        errs[name] = float(diff / (scale if name.startswith("tau")
+                                   else np.max(np.abs(ref))))
+    label = "rb3d " + "x".join(map(str, sizes))
+    log(f"{label} cuda vs cpu, {steps} steps: " + json.dumps(errs))
+    bad = {k: v for k, v in errs.items() if not v <= 1e-12}
+    if bad:
+        fail(f"{label} on the card disagrees with the CPU run: {bad}")
+    return errs
+
+
+def rb3d_phase(sizes, steps):
+    """rb3d_128 (benchmarks/progression.py config 5 on one card through
+    the port's build_rb3d, 'auto' -> banded, q = 80): the small card vs
+    CPU check; build with its phases, factor, the factoring first step
+    and `steps` timed steps (steps/s), launches = 1 + 4 (1 + steps), host
+    syncs, peak memory, BCs and incompressibility; the kernel at this
+    factor's operators (k = 1 and the Woodbury k = pins, f64); step_many
+    against the loop of step; the breakdown. Returns (record, the
+    kernel's k = 1 record)."""
+    import numpy as np
+    import torch
+    from dedalus_tpu_torch.core import fusedstep
+    from dedalus_tpu_torch.extras.bench_problems import build_rb3d
+    label = "rb3d_" + "x".join(map(str, sizes))
+    rec = {"size": "x".join(map(str, sizes)), "steps": steps,
+           "card_vs_cpu_" + "x".join(map(str, RB3D_SMALL)):
+               rb3d_card_vs_cpu(RB3D_SMALL, 10)}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    solver, dt = build_rb3d(*sizes, np.float64, device="cuda")
+    torch.cuda.synchronize()
+    rec["build_s"] = time.perf_counter() - t0
+    rec["build_phases_s"] = dict(solver.build_seconds)
+    rec["pencil_shape"] = list(solver.pencil_shape)
+    rec["ops"] = solver.ops.kind
+    if solver.ops.kind != "banded":
+        fail(f"{label} under 'auto' took the {solver.ops.kind} path")
+    st = solver.structure
+    G, S = solver.pencil_shape
+    rec.update(S=st.S, q=st.q, NB=st.NB, pins=st.t_pins, kl=st.kl, ku=st.ku,
+               dense_GB=G * S * S * 8 / 1e9,
+               after_build_GB=torch.cuda.memory_allocated() / 1e9)
+    log(f"{label} build " + json.dumps(rec))
+    reset_launches()
+    t0 = time.perf_counter()
+    solver.timestepper._ensure_factor(dt)
+    torch.cuda.synchronize()
+    rec["factor_s"] = time.perf_counter() - t0
+    rec["factor_chunks"] = solver.timestepper._lhs_aux[0]["factor_chunks"]
+    rec["after_factor_GB"] = torch.cuda.memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    solver.step(dt)
+    torch.cuda.synchronize()
+    rec["first_step_s"] = time.perf_counter() - t0
+    rec["steps_per_s"] = steps_per_s(solver, dt, steps)
+    rec["launches"] = fusedstep.LAUNCHES["banded_subst"]
+    rec["expected_launches"], _ = expected_launches(solver, 1 + steps,
+                                                    factorizations=1)
+    if rec["launches"] != rec["expected_launches"]:
+        fail(f"{label}: {rec['launches']} kernel launches, expected "
+             f"{rec['expected_launches']}")
+    check_no_host_syncs(label, rec, solver, dt)
+    b = next(v for v in solver.variables if v.name == "b")
+    rec["checks"] = rb_checks(label, solver, b)
+    rec["max_memory_allocated_GB"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"{label} " + json.dumps(rec))
+    rec["step_many"] = step_many_check(label, solver, dt, 10, 3)
+    aux = solver.timestepper._lhs_aux[0]
+    fsub = {k: aux["fsub"][k] for k in ("FwdOp", "BwdOp", "lastOp")}
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    fp = torch.randn((G, solver.ops.n_pad), generator=gen, device="cuda",
+                     dtype=torch.float64)
+    kernel = check_kernel(f"{label}-factors", fsub, fp)
+    fpw = torch.randn((G, solver.ops.t, solver.ops.n_pad), generator=gen,
+                      device="cuda", dtype=torch.float64)
+    rec["woodbury_kernel"] = check_kernel(f"{label}-factors-woodbury", fsub,
+                                          fpw)
+    del fp, fpw, aux, fsub
+    rec["breakdown_ms"] = breakdown(label, solver, dt, 5, factor=False)
+    rec["max_memory_allocated_GB"] = torch.cuda.max_memory_allocated() / 1e9
+    return rec, kernel
+
+
+def complex_ivp_phase(Nx, Nz, steps):
+    """The complex128 IVP of build_complex_ivp (ComplexFourier x
+    ChebyshevT, b*b, taus): 32x16 forced banded card vs CPU (1e-12); at
+    Nx x Nz under 'auto' (banded: dense would be 4.3 GB) the factoring
+    first step and `steps` timed steps, launches = 1 + 4 (1 + steps),
+    host syncs, a finite state, peak memory."""
+    import torch
+    from dedalus_tpu_torch.core import fusedstep
+    from dedalus_tpu_torch.extras.bench_problems import build_complex_ivp
+    label = f"complex ivp{Nx}x{Nz}"
+    rec = {"size": f"{Nx}x{Nz}", "steps": steps,
+           "card_vs_cpu_32x16_banded_rel": card_vs_cpu(
+               "complex ivp32x16 banded", lambda device: build_complex_ivp(
+                   32, 16, "banded", device=device), 10)}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    solver, dt = build_complex_ivp(Nx, Nz, device="cuda")
+    torch.cuda.synchronize()
+    rec["build_s"] = time.perf_counter() - t0
+    rec["build_phases_s"] = dict(solver.build_seconds)
+    rec["pencil_shape"] = list(solver.pencil_shape)
+    rec["dtype"] = str(solver.pencil_dtype)
+    rec["ops"] = solver.ops.kind
+    if solver.ops.kind != "banded":
+        fail(f"{label} under 'auto' took the {solver.ops.kind} path")
+    st = solver.structure
+    G, S = solver.pencil_shape
+    rec.update(q=st.q, NB=st.NB, pins=st.t_pins, kl=st.kl, ku=st.ku,
+               dense_GB=G * S * S * 16 / 1e9)
+    reset_launches()
+    t0 = time.perf_counter()
+    solver.step(dt)
+    torch.cuda.synchronize()
+    rec["first_step_s"] = time.perf_counter() - t0
+    rec["steps_per_s"] = steps_per_s(solver, dt, steps)
+    rec["launches"] = fusedstep.LAUNCHES["banded_subst"]
+    rec["expected_launches"], _ = expected_launches(solver, 1 + steps,
+                                                    factorizations=1)
+    check_no_host_syncs(label, rec, solver, dt)
+    rec["max_memory_allocated_GB"] = torch.cuda.max_memory_allocated() / 1e9
+    rec["finite"] = bool(torch.isfinite(solver.X).all())
+    log(f"{label} " + json.dumps(rec))
+    if rec["launches"] != rec["expected_launches"]:
+        fail(f"{label}: {rec['launches']} kernel launches, expected "
+             f"{rec['expected_launches']}")
+    if not rec["finite"] or solver.X.dtype != torch.complex128:
+        fail(f"{label}: a non-finite or non-complex128 state")
+    return rec
 
 
 def expected_launches(solver, steps, factorizations):
@@ -1104,6 +1407,7 @@ def main():
     main["checks"] = rb_checks("rb256x64", solver, b)
     x_banded = solver.X.cpu().numpy()
     check_no_host_syncs("rb256x64", main, solver, dt)
+    main["step_many"] = step_many_check("rb256x64", solver, dt, 20, 5)
 
     # the same run with matsolver=None: 'auto' takes the dense path here
     # (the JAX package's rule, written for a TPU, sizes it at 283 MB)
@@ -1300,8 +1604,22 @@ def main():
     phase_done("13 complex poisson1024x512")
 
     # --------------------------------------------------------- phase 14
-    # times and bound at this slice's main path shapes (sw512x256's own
-    # factor operators, q = 7, f64); the errors are the worst over every
+    # 3-D Rayleigh-Benard at config 5's one-card size through the kernel
+    # at q = 80
+    reset_launches()
+    RESULTS["rb3d"], rb3d_kernel = rb3d_phase(RB3D_SIZE, RB3D_STEPS)
+    release()
+    phase_done("14 rb3d_128")
+
+    # --------------------------------------------------------- phase 15
+    # a complex IVP through the complex kernel
+    RESULTS["complex_ivp"] = complex_ivp_phase(*CIVP_SIZE, CIVP_STEPS)
+    release()
+    phase_done("15 complex ivp1024x512")
+
+    # --------------------------------------------------------- phase 16
+    # times and bound at this slice's main path shapes (rb3d_128's own
+    # factor operators, q = 80, f64); the errors are the worst over every
     # kernel-vs-plain check (f32 and complex ones included), each also
     # listed with its relative bound, times and byte bound
     checks = [{k: rec[k] for k in ("shape", "dtype", "k", "max_abs_err",
@@ -1317,24 +1635,35 @@ def main():
                "sw512x256": RESULTS["sw"]["launches"],
                "complex poisson1024x512":
                    RESULTS["complex_poisson"]["launches"],
+               "rb3d_128": RESULTS["rb3d"]["launches"],
+               "complex ivp1024x512": RESULTS["complex_ivp"]["launches"],
+               **{f"{path} step_many": rec["step_many"]["launches"]["replay"]
+                  for path, rec in (("rb256x64", main), ("kdv1024",
+                                                          RESULTS["kdv"]),
+                                    ("shear512", RESULTS["shear"]),
+                                    ("sw512x256", RESULTS["sw"]),
+                                    ("rb3d_128", RESULTS["rb3d"]))},
                **RESULTS["dense_path_launches"]}
     kernels = {"kernels": [{
         "name": "banded_subst", "route": "cuda",
         "source": "dedalus_tpu_torch/csrc/banded_subst.cu",
         "replaces": "dedalus_tpu/core/fusedstep.py:520",
-        "launches": RESULTS["sw"]["launches"],
+        "launches": RESULTS["rb3d"]["launches"],
         "launches_by_path": by_path,
         "max_abs_err": max(c["max_abs_err"] for c in checks),
         "max_rel_err": max(c["max_rel_err"] for c in checks),
-        "ms": sw_kernel["ms"], "cold_ms": sw_kernel["cold_ms"],
-        "stream_ms": sw_kernel["stream_ms"],
-        "plain_ms": sw_kernel["plain_ms"],
-        "bound_ms": sw_kernel["bound_ms"],
-        "bound_by": sw_kernel["bound_by"],
+        "ms": rb3d_kernel["ms"], "cold_ms": rb3d_kernel["cold_ms"],
+        "stream_ms": rb3d_kernel["stream_ms"],
+        "plain_ms": rb3d_kernel["plain_ms"],
+        "bound_ms": rb3d_kernel["bound_ms"],
+        "bound_by": rb3d_kernel["bound_by"],
         "library_ms": None,
         **{path: {k: rec[k] for k in ("ms", "plain_ms", "bound_ms",
                                       "bound_by")}
            for path, rec in (("rb256x64", main_rec),
+                             ("sw512x256", sw_kernel),
+                             ("rb3d_128 woodbury",
+                              RESULTS["rb3d"]["woodbury_kernel"]),
                              ("poisson2048x1024", poisson_kernel),
                              ("complex128 poisson1024x512",
                               complex_kernels[0]),
@@ -1342,7 +1671,7 @@ def main():
                               complex_kernels[1]))},
         "checks": checks}]}
     RESULTS["kernels"] = kernels["kernels"]
-    phase_done("14 kernels line")
+    phase_done("16 kernels line")
     log(json.dumps(kernels))
     log(card)
     log(json.dumps({"ok": True, "device": {

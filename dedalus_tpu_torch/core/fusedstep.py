@@ -31,20 +31,24 @@ import threading
 import torch
 
 __all__ = ["banded_substitution", "substitution_plain", "substitution_cuda",
-           "LAUNCHES", "KERNEL_SOURCE", "build_dir", "load_kernel_library",
-           "ptxas_report", "kernel_plan"]
+           "LAUNCHES", "RECORDED", "KERNEL_SOURCE", "build_dir",
+           "load_kernel_library", "ptxas_report", "kernel_plan"]
 
 
 # --------------------------------------------------------- the substitution
 
 # kernel launches made by `substitution_cuda`, by kernel name
 LAUNCHES = {"banded_subst": 0}
+# launches recorded into a CUDA graph while a stream captures: they run
+# when the graph is replayed, and the replays add them to LAUNCHES
+# (core/stepgraph.py)
+RECORDED = {"banded_subst": 0}
 
 KERNEL_SOURCE = pathlib.Path(__file__).resolve().parent.parent \
     / "csrc" / "banded_subst.cu"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-MAX_Q = 64
+MAX_Q = 128
 
 _LIB = None
 _LIB_LOCK = threading.Lock()
@@ -200,8 +204,9 @@ def substitution_cuda(fsub, fp):
     """Launch the banded substitution kernel (csrc/banded_subst.cu) on
     CUDA tensors: one thread block per pencil group (and per 16
     right-hand sides), on the current stream. The kernel sizes its
-    shared-memory ring itself. Raises on a tensor it does not take or a
-    launch error code."""
+    shared-memory ring itself. Raises on a tensor it does not take (q
+    above MAX_Q among them) or a launch error code. A launch made while
+    the stream captures a CUDA graph counts in RECORDED, not LAUNCHES."""
     fwd, bwd, last = fsub["FwdOp"], fsub["BwdOp"], fsub["lastOp"]
     f = _as_columns(fp)
     G, k, n_pad = f.shape
@@ -238,7 +243,10 @@ def substitution_cuda(fsub, fp):
     if err != 0:
         raise RuntimeError(f"banded_subst kernel launch failed: CUDA error "
                            f"{err}")
-    LAUNCHES["banded_subst"] += 1
+    if torch.cuda.is_current_stream_capturing():
+        RECORDED["banded_subst"] += 1
+    else:
+        LAUNCHES["banded_subst"] += 1
     return out.reshape(fp.shape)
 
 

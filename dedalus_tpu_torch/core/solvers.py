@@ -27,7 +27,8 @@ from .subsystems import (PencilLayout, build_subproblems, MatrixStructure,
                          state_key, PatternAccumulator, compute_group_closure,
                          assemble_group_coos)
 from .batched_assembly import batched_system_coos
-from .future import EvalContext, ev
+from .field import Field
+from .future import EvalContext, Future, ev
 from . import timesteppers as timesteppers_mod
 from ..libraries import matsolvers, pencilops
 from ..tools.array import torch_dtype, to_numpy, scipy_sparse_eigs
@@ -337,10 +338,12 @@ class SolverBase:
         """
         Build `eval_F(X, t=None) -> (G, S)` evaluating the per-equation
         expressions selected by `get_expr` (default: the member's `key`
-        entry) on the state X; X=None reads every field's own data (an
-        NLBVP residual). Non-variable fields feeding the RHS (parameters,
-        forcings) are read at evaluation time, so user updates to them
-        take effect on the next evaluation.
+        entry) on the state X at time t (a float, or a 0-d device tensor,
+        as a recorded step passes it); X=None reads every field's own
+        data (an NLBVP residual). Non-variable fields feeding the RHS
+        (parameters, forcings; `eval_F.extra_fields`) are read at
+        evaluation time, so user updates to them take effect on the next
+        evaluation.
         """
         if get_expr is None:
             get_expr = lambda member: member.get(key)  # noqa: E731
@@ -360,12 +363,25 @@ class SolverBase:
              for _, cond in eq["members"]]
             for eq in equations]
 
+        # the non-variable fields feeding the RHS, which a recorded step
+        # reads by address (dedalus_tpu/core/solvers.py:562-573)
+        extra = set()
+        for eq in equations:
+            for member, _ in eq["members"]:
+                expr = get_expr(member)
+                if isinstance(expr, (Field, Future)):
+                    extra |= expr.atoms(Field)
+        extra -= set(variables)
+        extra.discard(time_field)
+
         def eval_F(X, t=None):
             subs = {}
             if X is not None:
                 arrays = scatter_state(layout, variables, X)
                 subs = {var: arrays[state_key(var)] for var in variables}
-            if time_field is not None:
+            if time_field is not None and isinstance(t, torch.Tensor):
+                subs[time_field] = t.to(real).reshape((1,) * dim)
+            elif time_field is not None:
                 subs[time_field] = torch.full((1,) * dim, float(t or 0.0),
                                               dtype=real, device=device)
             ctx = EvalContext(subs)
@@ -388,6 +404,8 @@ class SolverBase:
                 parts.append(total)
             return torch.cat(parts, dim=1).to(dtype)
 
+        eval_F.extra_fields = sorted(extra, key=lambda f: (f.name or "",
+                                                          id(f)))
         return eval_F
 
 
@@ -501,10 +519,44 @@ class InitialValueSolver(SolverBase):
             sim_time=self.sim_time, timestep=dt)
 
     def step_many(self, n, dt):
-        """Advance n constant-dt steps: a loop of `step`, so every step
-        keeps its own re-projection cadence and handler schedule."""
-        for _ in range(int(n)):
-            self.step(dt)
+        """
+        Advance n constant-dt steps as one block (the JAX package's
+        step_many, dedalus_tpu/core/solvers.py:929): on a CUDA solver the
+        stationary steps replay one recorded CUDA graph of the step
+        (core/stepgraph.py), on the CPU they loop over the same step
+        body. Scheduled handlers are evaluated once at the END of the
+        block, so per-step output cadences inside a block coarsen to the
+        block boundary; the Hermitian re-projection runs at the block
+        start when the block crosses its cadence. Use step() when
+        per-step cadences or adaptive dt matter.
+        """
+        n = int(n)
+        dt = float(dt)
+        if not np.isfinite(dt):
+            raise ValueError(f"Invalid timestep: {dt}")
+        if n <= 0:
+            return
+        if self.iteration <= self.warmup_iterations < self.iteration + n:
+            self._synchronize()
+            self.warmup_time = time_mod.time()
+        if self.fields_dirty():
+            self.X = self.gather_fields()
+        cadence = self.enforce_real_cadence
+        if cadence:
+            r = self.iteration % cadence
+            if (n >= cadence or r < self.timestepper.steps
+                    or (cadence - r) < n):
+                self.enforce_hermitian_symmetry()
+        self.timestepper.step_many(n, dt)
+        self.defer_scatter(self.X)
+        self.snapshot_versions()
+        self.problem.sim_time = self.sim_time
+        self.iteration += n
+        self.dt = dt
+        self.evaluator.evaluate_scheduled(
+            iteration=self.iteration,
+            wall_time=time_mod.time() - self.start_time,
+            sim_time=self.sim_time, timestep=dt)
 
     def log_stats(self, format=".4g"):
         """Log run statistics with the reference's throughput metric,

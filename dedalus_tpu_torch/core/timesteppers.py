@@ -20,10 +20,19 @@ solver's ops (dense or banded). The LHS factorization (a0*M + b0*L, or
 M + dt*H[i,i]*L) is recomputed only when its coefficients change
 (reference: core/timesteppers.py:123-128,160-168); `factorizations`
 counts them.
+
+`step_many(n, dt)` is the JAX package's blocked step
+(dedalus_tpu/core/timesteppers.py:345 and :723): the multistep ramp and
+any dt change run as single steps until the coefficients are stationary,
+then the remaining steps run the same step body `_advance` at those
+coefficients. On a CUDA solver that body is recorded once as a CUDA
+graph and replayed per step (core/stepgraph.py); on the CPU it is a loop.
 """
 
 import numpy as np
 import torch
+
+from .stepgraph import StepGraph
 
 schemes = {}
 
@@ -78,12 +87,89 @@ def _combine(coeffs, tensors, out=None, sign=1.0):
     return out
 
 
-class MultistepIMEX:
+class BlockStepper:
+    """The blocked steps shared by both families: `_run_block(n, dt)`
+    advances the solver's state n steps with `_advance(X, t, dt)` at the
+    coefficients the caller has set; `_graph_key(dt)` gives the scalars a
+    recording bakes in. On a CUDA solver the step is
+    recorded as a StepGraph after one uncaptured step (which warms the
+    kernel library, the cuFFT plans and the cuBLAS workspace on the
+    capture stream), kept while its scalars and inputs match, and
+    replayed; `recordings` counts the recordings. A failed capture
+    raises. A recording runs `_advance_in_place`, which writes whatever
+    the step carries besides X into fixed buffers, and `_adopt_buffers`
+    puts that state into those buffers before a recorded step runs."""
+
+    _graph = None
+    _stream = None
+    recordings = 0
+
+    def _advance_in_place(self, X, t, dt):
+        return self._advance(X, t, dt)
+
+    def _adopt_buffers(self, record):
+        """Nothing besides X to carry (a one-step scheme)."""
+
+    def _graph_inputs(self):
+        """The tensors a recorded step reads by address besides its own
+        buffers: the factor, M, L and the parameter fields' data (put in
+        coefficient space here, outside any capture)."""
+        solver = self.solver
+        aux = self._lhs_aux
+        return (*(aux if isinstance(aux, list) else [aux]), solver.M_mat,
+                solver.L_mat,
+                *(f.coeff_data() for f in solver.eval_F.extra_fields))
+
+    def _run_block(self, n, dt):
+        """n steps from the solver's state; sim_time advances by n
+        additions of dt, as in n single steps (the recorded step adds dt
+        to its device time the same way)."""
+        solver = self.solver
+        dt = float(dt)
+        X, t = solver.X, float(solver.sim_time)
+        for _ in range(n):
+            solver.sim_time = float(solver.sim_time) + dt
+        if solver.dist.device.type != "cuda":
+            for _ in range(n):
+                X = self._advance(X, t, dt)
+                t = t + dt
+            solver.X = X
+            return
+        key, inputs = self._graph_key(dt), self._graph_inputs()
+        graph = self._graph
+        if graph is None or not graph.matches(key, inputs):
+            self._graph = graph = None
+            if self._stream is None:
+                self._stream = torch.cuda.Stream(solver.dist.device)
+            current = torch.cuda.current_stream(solver.dist.device)
+            self._stream.wait_stream(current)
+            self._adopt_buffers(record=True)
+            with torch.cuda.stream(self._stream):
+                X = self._advance_in_place(X, t, dt)
+            current.wait_stream(self._stream)
+            t = t + dt
+            n -= 1
+            if n:
+                graph = self._graph = StepGraph(
+                    lambda X, t: self._advance_in_place(X, t, dt), X, dt,
+                    self._stream, key, inputs)
+                self.recordings += 1
+        if n:
+            self._adopt_buffers(record=False)
+            X = graph.replay(X, t, n)
+        solver.X = X
+
+
+class MultistepIMEX(BlockStepper):
     """Base multistep IMEX integrator (reference: core/timesteppers.py:22).
 
     The F, M.X and L.X histories are lists of s (G, S) tensors, newest
-    first; each step puts a new head on each list and drops the tail, so
-    no two histories share a buffer."""
+    first; a step puts a new head on each list and drops the tail, so no
+    two histories share a buffer. A recorded step reads them at fixed
+    addresses, so it writes the new head into the lists' buffers in
+    place instead (the others move down one)."""
+
+    _buffers = None     # the histories' tensors a recorded step writes
 
     steps = None
     stages = 1
@@ -116,33 +202,99 @@ class MultistepIMEX:
         c = np.concatenate([c, np.zeros(s - len(c))])
         return a, b, c
 
-    def step(self, dt):
-        solver = self.solver
-        ops, M, L = solver.ops, solver.M_mat, solver.L_mat
+    def _prepare(self, dt):
+        """Push dt into the history, count the step, and set its padded
+        coefficients, refactoring when the leading ones change."""
         s = self.steps
         self.dt_hist = [float(dt)] + self.dt_hist[:s - 1]
         self.iteration += 1
-        order = min(s, self.iteration)
+        self._set_coefficients(min(s, self.iteration))
+
+    def _set_coefficients(self, order):
+        solver = self.solver
         a, b, c = self._pad_coeffs(
             *self.compute_coefficients(self.dt_hist, order))
         # refactor on the leading coefficients (the JAX package's key)
         key = (round(float(a[0]), 14), round(float(b[0]), 14))
         if key != self._lhs_key:
             self._lhs_key = key
-            self._lhs_aux = ops.factor_lincomb(float(a[0]), M,
-                                               float(b[0]), L)
+            self._lhs_aux = solver.ops.factor_lincomb(
+                float(a[0]), solver.M_mat, float(b[0]), solver.L_mat)
             self.factorizations += 1
-        X = solver.X
-        Fn = solver.eval_F(X, float(solver.sim_time)) * self._mask
+        self._abc = (a, b, c)
+
+    def _advance(self, X, t, dt, in_place=False):
+        """One step from state X at time t with the coefficients set
+        (they carry dt): returns the new state. The histories take their
+        new heads by rebinding the lists, or with `in_place` by copies
+        into their buffers."""
+        solver = self.solver
+        ops, M, L = solver.ops, solver.M_mat, solver.L_mat
+        a, b, c = self._abc
+        Fn = solver.eval_F(X, t) * self._mask
         MXn, LXn = ops.matvec_pair(M, L, X)
-        self.F_hist = [Fn] + self.F_hist[:-1]
-        self.MX_hist = [MXn] + self.MX_hist[:-1]
-        self.LX_hist = [LXn] + self.LX_hist[:-1]
-        RHS = _combine(c, self.F_hist)
-        RHS = _combine(a[1:], self.MX_hist, RHS, sign=-1.0)
-        RHS = _combine(b[1:], self.LX_hist, RHS, sign=-1.0)
-        solver.X = ops.solve(self._lhs_aux, RHS, mats=(M, L))
+        hists = (self.F_hist, self.MX_hist, self.LX_hist)
+        F, MX, LX = ([new] + hist[:-1]
+                     for new, hist in zip((Fn, MXn, LXn), hists))
+        RHS = _combine(c, F)
+        RHS = _combine(a[1:], MX, RHS, sign=-1.0)
+        RHS = _combine(b[1:], LX, RHS, sign=-1.0)
+        if in_place:
+            for new, hist in zip((Fn, MXn, LXn), hists):
+                for j in range(len(hist) - 1, 0, -1):
+                    hist[j].copy_(hist[j - 1])
+                hist[0].copy_(new)
+        else:
+            self.F_hist, self.MX_hist, self.LX_hist = F, MX, LX
+        return ops.solve(self._lhs_aux, RHS, mats=(M, L))
+
+    def _advance_in_place(self, X, t, dt):
+        return self._advance(X, t, dt, in_place=True)
+
+    def _adopt_buffers(self, record):
+        """With `record`, the histories' tensors become the buffers a
+        recording writes; else histories rebound by single steps since
+        are copied into those buffers, tail first (a single step moves a
+        buffer only towards the tail, so each is read before it is
+        written)."""
+        hists = (self.F_hist, self.MX_hist, self.LX_hist)
+        if record:
+            self._buffers = [list(hist) for hist in hists]
+            return
+        for hist, own in zip(hists, self._buffers):
+            for j in range(len(hist) - 1, -1, -1):
+                if hist[j] is not own[j]:
+                    own[j].copy_(hist[j])
+                    hist[j] = own[j]
+
+    def step(self, dt):
+        solver = self.solver
+        self._prepare(dt)
+        solver.X = self._advance(solver.X, float(solver.sim_time), dt)
         solver.sim_time = float(solver.sim_time) + float(dt)
+
+    def _stationary(self, dt):
+        s = self.steps
+        return (self.iteration >= s and len(self.dt_hist) == s
+                and all(abs(k - dt) < 1e-15 * abs(dt) for k in self.dt_hist))
+
+    def _graph_key(self, dt):
+        return (dt, *(tuple(map(float, v)) for v in self._abc))
+
+    def step_many(self, n, dt):
+        """n constant-dt steps (dedalus_tpu/core/timesteppers.py:345): the
+        startup ramp and a dt change run as single steps until the
+        coefficients are stationary; the rest is one block."""
+        dt = float(dt)
+        n = int(n)
+        while n > 0 and not self._stationary(dt):
+            self.step(dt)
+            n -= 1
+        if n == 0:
+            return
+        self._set_coefficients(self.steps)
+        self._run_block(n, dt)
+        self.iteration += n
 
 
 @add_scheme
@@ -245,7 +397,7 @@ class CNLF2(MultistepIMEX):
         return a, b, c
 
 
-class RungeKuttaIMEX:
+class RungeKuttaIMEX(BlockStepper):
     """IMEX Runge-Kutta base (reference: core/timesteppers.py:486)."""
 
     stages = None
@@ -276,8 +428,9 @@ class RungeKuttaIMEX:
         self.factorizations += len(auxs)
         return [auxs[j] for j in self.stage_slot]
 
-    def step_body(self, X0, t0, dt):
-        """One RK step from state X0 at time t0: returns the new state."""
+    def _advance(self, X0, t0, dt):
+        """One RK step from state X0 at time t0 (a float or a 0-d
+        tensor): returns the new state."""
         solver = self.solver
         ops = solver.ops
         M, L = solver.M_mat, solver.L_mat
@@ -304,9 +457,20 @@ class RungeKuttaIMEX:
     def step(self, dt):
         solver = self.solver
         self._ensure_factor(dt)
-        solver.X = self.step_body(solver.X, float(solver.sim_time), float(dt))
+        solver.X = self._advance(solver.X, float(solver.sim_time), float(dt))
         solver.sim_time = float(solver.sim_time) + float(dt)
         self.iteration += 1
+
+    def _graph_key(self, dt):
+        return dt
+
+    def step_many(self, n, dt):
+        """n constant-dt steps as one block
+        (dedalus_tpu/core/timesteppers.py:723)."""
+        n = int(n)
+        self._ensure_factor(dt)
+        self._run_block(n, dt)
+        self.iteration += n
 
 
 @add_scheme

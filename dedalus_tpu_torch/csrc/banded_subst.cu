@@ -42,9 +42,11 @@
 //   (cp.async.bulk, no tensor map), each completing on the stage's "full"
 //   mbarrier. The unit of the ring is a row panel of at most panel_bytes
 //   (32, 16 or 8 KB: the largest that leaves four stages), not a whole
-//   operator, so a q = 64 FwdOp (128 KB in f64) fits and at q = 32
+//   operator, so a FwdOp of q = 128 (512 KB in f64) streams through it,
+//   a panel need not hold a whole number of operators (q = 80 in f64:
+//   25 rows of 1,280 bytes, and a last panel of 10), and at q = 32
 //   several operators are in flight. The prefetch runs straight from the
-//   forward sweep into the backward one.
+//   forward sweep into the backward one. q <= kMaxQ = 128.
 // - Eight consumer warps wait on a stage's "full" barrier, compute its
 //   rows, and release it on its "empty" barrier (one arrive per warp).
 //   A block alone on its SM (G <= 132) is bound by the chain's latency:
@@ -68,17 +70,22 @@
 //   copied by the producer warp with plain loads and stores instead.
 // - The ring is sized from the shared memory a block may take at the
 //   blocks per SM this launch aims at: 1 when G <= 132 (the block has
-//   the SM to itself), up to 4 (k = 1) or 2 (k > 1) for larger G.
+//   the SM to itself), up to 4 (k = 1) or 2 (k > 1) for larger G, fewer
+//   where the working vectors would leave the ring under four stages
+//   (k = 16 at large q: 2 x 3q x 16 words, 60 KB at q = 80 in f64).
 // - CUDA cores and FMAs only: f64 has no wgmma, and the math is far below
 //   the ridge. The kernel allocates nothing and runs on the caller's
 //   stream; every entry point returns the CUDA error code.
 //
-// Registers, shared memory and spills of each instantiation (nvcc
-// -Xptxas -v, CUDA 12.8, sm_90a; the build writes them to the .ptxas.txt
-// file beside the library):
-//   <double, 1>, <float, 1>    56 registers, 0 spills, 0 stack
-//   <double, 16>, <float, 16>  96 registers, 0 spills, 0 stack
-// (the complex instantiations' report is in the same file)
+// Registers, shared memory and spills of each instantiation <T, k tile,
+// q range> (nvcc -Xptxas -v, CUDA 12.8, sm_90a; the build writes them to
+// the .ptxas.txt file beside the library):
+//   <double|float|complex<float>, 1, 128>   56 registers, 0 spills
+//   <double|float|complex<float>, 16, 64>   96 registers, 0 spills
+//   <double|float|complex<float>, 16, 128>  96 registers, 0 spills
+//   <complex<double>, 1, 128>    56 registers, 76 bytes of spill stores
+//   <complex<double>, 16, 64>    96 registers, 312 bytes of spill stores
+//   <complex<double>, 16, 128>   96 registers, 604 bytes of spill stores
 // all with 2 named barriers and no static shared memory; the dynamic
 // shared memory (ring + vectors + y) is set per launch, up to 227 KB.
 
@@ -133,9 +140,17 @@ constexpr int kThreads = kConsumerThreads + 32;  // + one producer warp
 constexpr int kMaxStages = 32;
 constexpr int kBarrierBytes = 2 * kMaxStages * 8;  // full + empty mbarriers
 constexpr int kMaxCols = 16;
-constexpr int kMaxQ = 64;
+// the largest block size q; the consumers' per-thread register share of
+// the chain-independent part of a working vector is sized per q range
+// (kSmallQ or kMaxQ) so that q <= kSmallQ keeps its registers
+constexpr int kMaxQ = 128;
+constexpr int kSmallQ = 64;
 constexpr int kYSmemMax = 32 * 1024;
 constexpr int kMaxDevices = 64;
+constexpr int kMinPanelBytes = 8192;
+// a ring stage holds at least one row of the widest operator (BwdOp, 3q
+// words) of the widest element type (complex<double>)
+static_assert(3 * kMaxQ * 16 <= kMinPanelBytes, "panel smaller than a row");
 
 template <typename T>
 struct Params {
@@ -366,11 +381,13 @@ __device__ __forceinline__ void panel_matvec(const T* A, int rows, int cols,
   }
 }
 
-// The consumer warps: walk the chain, one operator at a time.
-template <typename T, int KT>
+// The consumer warps: walk the chain, one operator at a time. MQ bounds q
+// (kSmallQ or kMaxQ): it sizes PM, each thread's share of the q*KT words
+// of a working vector that are loaded ahead of an operator.
+template <typename T, int KT, int MQ>
 __device__ void consume(const Params<T>& p, int g, const T* ring,
                         uint64_t* full, uint64_t* empty, T* vbuf, T* ysm) {
-  constexpr int PM = (kMaxQ * KT + kConsumerThreads - 1) / kConsumerThreads;
+  constexpr int PM = (MQ * KT + kConsumerThreads - 1) / kConsumerThreads;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int q = p.q, NB = p.NB, n_pad = NB * q, nops = 2 * NB - 1;
   const int col0 = blockIdx.y * p.kc;
@@ -471,7 +488,7 @@ __device__ void consume(const Params<T>& p, int g, const T* ring,
   }
 }
 
-template <typename T, int KT>
+template <typename T, int KT, int MQ>
 __global__ void __launch_bounds__(kThreads, KT == 1 ? 4 : 2)
 banded_subst_kernel(const Params<T> p) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -493,7 +510,7 @@ banded_subst_kernel(const Params<T> p) {
   if (threadIdx.x >= kConsumerThreads)
     produce(p, g, ring, full, empty);
   else
-    consume<T, KT>(p, g, ring, full, empty, vbuf, ysm);
+    consume<T, KT, MQ>(p, g, ring, full, empty, vbuf, ysm);
 }
 
 // ------------------------------------------------------------- host side
@@ -540,7 +557,9 @@ cudaError_t device_info(DeviceInfo* info) {
 
 // The launch shape: columns per block, the blocks per SM aimed at, and the
 // ring (stages x panel bytes) that the shared memory left at that
-// occupancy holds.
+// occupancy holds. Where the working vectors leave the ring fewer than
+// four stages (large q at k > 1), fewer blocks share an SM; alone on its
+// SM a block takes two stages or more.
 cudaError_t make_plan(int G, int ncols, int NB, int q, int item,
                       const DeviceInfo& d, Plan* pl) {
   if (G < 1 || ncols < 1 || NB < 2 || q < 1 || q > kMaxQ)
@@ -552,22 +571,27 @@ cudaError_t make_plan(int G, int ncols, int NB, int q, int item,
   const int cap = p.kt == 1 ? 4 : 2;  // the kernels' __launch_bounds__
   const long long blocks = static_cast<long long>(G) * p.grid_y;
   long long bps = (blocks + d.sms - 1) / d.sms;
-  p.blocks_per_sm = static_cast<int>(bps < 1 ? 1 : (bps > cap ? cap : bps));
-  long long budget = d.smem_per_sm / p.blocks_per_sm - d.reserved;
-  if (budget > d.optin) budget = d.optin;
-  budget &= ~15LL;
+  bps = bps < 1 ? 1 : (bps > cap ? cap : bps);
   // barriers + working vectors
   const long long fixed = kBarrierBytes + 2LL * 3 * q * p.kt * item;
   const long long ybytes = static_cast<long long>(NB) * q * p.kc * item;
-  p.y_smem = ybytes <= kYSmemMax && fixed + ybytes + 4 * 16384 <= budget;
-  const long long ring = budget - fixed - (p.y_smem ? ybytes : 0);
-  // the largest of 32, 16 and 8 KB that leaves at least four stages
-  p.panel_bytes = 32768;
-  while (p.panel_bytes > 8192 && ring < 4LL * p.panel_bytes)
-    p.panel_bytes >>= 1;
-  long long stages = ring / p.panel_bytes;
-  if (stages > kMaxStages) stages = kMaxStages;
-  if (stages < 2) return cudaErrorInvalidConfiguration;
+  long long stages;
+  for (;; --bps) {
+    long long budget = d.smem_per_sm / bps - d.reserved;
+    if (budget > d.optin) budget = d.optin;
+    budget &= ~15LL;
+    p.y_smem = ybytes <= kYSmemMax && fixed + ybytes + 4 * 16384 <= budget;
+    const long long ring = budget - fixed - (p.y_smem ? ybytes : 0);
+    // the largest of 32, 16 and 8 KB that leaves at least four stages
+    p.panel_bytes = 32768;
+    while (p.panel_bytes > kMinPanelBytes && ring < 4LL * p.panel_bytes)
+      p.panel_bytes >>= 1;
+    stages = ring / p.panel_bytes;
+    if (stages > kMaxStages) stages = kMaxStages;
+    if (stages >= 4 || (bps == 1 && stages >= 2)) break;
+    if (bps == 1) return cudaErrorInvalidConfiguration;
+  }
+  p.blocks_per_sm = static_cast<int>(bps);
   p.stages = static_cast<int>(stages);
   p.smem_bytes = static_cast<int>(fixed + (p.y_smem ? ybytes : 0) +
                                   stages * p.panel_bytes);
@@ -579,7 +603,7 @@ cudaError_t make_plan(int G, int ncols, int NB, int q, int item,
   return cudaSuccess;
 }
 
-template <typename T, int KT>
+template <typename T, int KT, int MQ>
 cudaError_t launch_kt(const Params<T>& prm, const Plan& pl,
                       cudaStream_t stream) {
   static int set_bytes[kMaxDevices];  // dynamic smem allowed, per device
@@ -589,7 +613,7 @@ cudaError_t launch_kt(const Params<T>& prm, const Plan& pl,
   {
     std::lock_guard<std::mutex> lock(g_mutex);
     if (pl.smem_bytes > set_bytes[dev]) {
-      err = cudaFuncSetAttribute(banded_subst_kernel<T, KT>,
+      err = cudaFuncSetAttribute(banded_subst_kernel<T, KT, MQ>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  pl.smem_bytes);
       if (err != cudaSuccess) return err;
@@ -597,7 +621,8 @@ cudaError_t launch_kt(const Params<T>& prm, const Plan& pl,
     }
   }
   const dim3 grid(prm.G, pl.grid_y);
-  banded_subst_kernel<T, KT><<<grid, kThreads, pl.smem_bytes, stream>>>(prm);
+  banded_subst_kernel<T, KT, MQ>
+      <<<grid, kThreads, pl.smem_bytes, stream>>>(prm);
   return cudaGetLastError();
 }
 
@@ -613,8 +638,13 @@ int launch(const T* fwd, const T* bwd, const T* last, const T* fp, T* out,
   const Params<T> prm{fwd, bwd, last, fp, out, G, ncols, NB, q,
                       pl.kc, pl.stages, pl.panel_bytes, pl.y_smem,
                       pl.split_rows};
-  err = pl.kt == 1 ? launch_kt<T, 1>(prm, pl, stream)
-                   : launch_kt<T, kMaxCols>(prm, pl, stream);
+  // at k = 1 each thread holds one word of the q words whatever q (PM = 1)
+  if (pl.kt == 1)
+    err = launch_kt<T, 1, kMaxQ>(prm, pl, stream);
+  else if (q <= kSmallQ)
+    err = launch_kt<T, kMaxCols, kSmallQ>(prm, pl, stream);
+  else
+    err = launch_kt<T, kMaxCols, kMaxQ>(prm, pl, stream);
   return static_cast<int>(err);
 }
 

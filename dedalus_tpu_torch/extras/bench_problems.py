@@ -12,8 +12,10 @@ Rayleigh-Benard onset EVP (examples/rayleigh_benard_evp.py) and the
 waves-on-a-string EVP (examples/waves_on_a_string.py); and the
 progression's sphere shallow-water IVP (benchmarks/progression.py
 build_shallow_water, with the balanced-height LBVP of
-examples/shallow_water.py). Each builds on `device` (default `cuda`; pass
-"cpu" to run on the host).
+examples/shallow_water.py), the 3-D Rayleigh-Benard IVP of the
+progression's config 5 (benchmarks/progression.py build_rb3d) and a
+complex ComplexFourier x ChebyshevT IVP with a quadratic term. Each builds
+on `device` (default `cuda`; pass "cpu" to run on the host).
 """
 
 import numpy as np
@@ -131,6 +133,52 @@ def build_rb_solver(Nx, Nz, dtype, matsolver=None, device=None):
     return solver, b
 
 
+def build_rb3d(Nx, Ny, Nz, dtype, matsolver=None, device=None):
+    """3-D Rayleigh-Benard convection (the JAX package's
+    benchmarks/progression.py:91 build_rb3d, BASELINE config 5's one-card
+    variant rb3d_128 at 128x128x64): RealFourier(x) x RealFourier(y) on
+    (0, 4) with dealias 3/2 and ChebyshevT(z) on (0, 1), kappa = nu =
+    (2e-6)^(1/2), RK222, buoyancy from normal noise of seed 42 (scale
+    1e-3) plus 1 - z. Returns (solver, dt), dt = 1e-3."""
+    import dedalus_tpu_torch.public as d3
+    coords = d3.CartesianCoordinates("x", "y", "z")
+    dist = d3.Distributor(coords, dtype=dtype, device=device)
+    xb = d3.RealFourier(coords["x"], size=Nx, bounds=(0, 4.0), dealias=3 / 2)
+    yb = d3.RealFourier(coords["y"], size=Ny, bounds=(0, 4.0), dealias=3 / 2)
+    zb = d3.ChebyshevT(coords["z"], size=Nz, bounds=(0, 1.0), dealias=3 / 2)
+    p = dist.Field(name="p", bases=(xb, yb, zb))
+    b = dist.Field(name="b", bases=(xb, yb, zb))
+    u = dist.VectorField(coords, name="u", bases=(xb, yb, zb))
+    tau_p = dist.Field(name="tau_p")
+    tau_b1 = dist.Field(name="tau_b1", bases=(xb, yb))
+    tau_b2 = dist.Field(name="tau_b2", bases=(xb, yb))
+    tau_u1 = dist.VectorField(coords, name="tau_u1", bases=(xb, yb))
+    tau_u2 = dist.VectorField(coords, name="tau_u2", bases=(xb, yb))
+    kappa = nu = 2.0e-6 ** 0.5
+    x, y, z = dist.local_grids(xb, yb, zb)
+    ex, ey, ez = coords.unit_vector_fields(dist)
+    lift_basis = zb.derivative_basis(1)
+    lift = lambda A: d3.Lift(A, lift_basis, -1)  # noqa: E731
+    grad_u = d3.grad(u) + ez * lift(tau_u1)
+    grad_b = d3.grad(b) + ez * lift(tau_b1)
+    problem = d3.IVP([p, b, u, tau_p, tau_b1, tau_b2, tau_u1, tau_u2],
+                     namespace=locals())
+    problem.add_equation("trace(grad_u) + tau_p = 0")
+    problem.add_equation("dt(b) - kappa*div(grad_b) + lift(tau_b2) = - u@grad(b)")
+    problem.add_equation(
+        "dt(u) - nu*div(grad_u) + grad(p) - b*ez + lift(tau_u2) = - u@grad(u)")
+    problem.add_equation("b(z=0) = 1")
+    problem.add_equation("u(z=0) = 0")
+    problem.add_equation("b(z=1) = 0")
+    problem.add_equation("u(z=1) = 0")
+    problem.add_equation("integ(p) = 0")
+    kw = {"matsolver": matsolver} if matsolver else {}
+    solver = problem.build_solver(d3.RK222, **kw)
+    b.fill_random("g", seed=42, distribution="normal", scale=1e-3)
+    b["g"] += (1 - z)
+    return solver, 1e-3
+
+
 def build_tau_ivp(Nx=16, Nz=8, cadence=100, matsolver=None,
                   timestepper=None, device=None):
     """2-D nonlinear heat IVP with tau lines (Fourier x Chebyshev), SBDF2
@@ -154,6 +202,36 @@ def build_tau_ivp(Nx=16, Nz=8, cadence=100, matsolver=None,
     x, z = dist.local_grids(xb, zb)
     u["g"] = np.sin(np.pi * z) * (1 + 0.3 * np.cos(np.pi * x / 2))
     return solver, u, x, z
+
+
+def build_complex_ivp(Nx, Nz, matsolver=None, device=None):
+    """A complex128 IVP with a quadratic term on ComplexFourier(x) x
+    ChebyshevT(z) over (0, 4) x (0, 1), dealias 3/2: dt(b) - lap(b) +
+    lift(t1, -1) + lift(t2, -2) = -b*b, b(z=0) = b(z=1) = 0, RK222, from
+    b = sin(pi z) (1/2 + 0.3 e^(i pi x / 2) + 0.2i cos(pi x)). Its pencils
+    are complex (one mode each) and, banded, q = 3 with 2 pins, so the
+    banded path runs the complex substitution in every stage solve.
+    Returns (solver, dt), dt = 1e-3."""
+    import dedalus_tpu_torch.public as d3
+    coords = d3.CartesianCoordinates("x", "z")
+    dist = d3.Distributor(coords, dtype=np.complex128, device=device)
+    xb = d3.ComplexFourier(coords["x"], size=Nx, bounds=(0, 4.0),
+                           dealias=3 / 2)
+    zb = d3.ChebyshevT(coords["z"], size=Nz, bounds=(0, 1.0), dealias=3 / 2)
+    b = dist.Field(name="b", bases=(xb, zb))
+    t1 = dist.Field(name="t1", bases=xb)
+    t2 = dist.Field(name="t2", bases=xb)
+    lift = lambda A, n: d3.Lift(A, zb.derivative_basis(2), n)  # noqa: E731
+    problem = d3.IVP([b, t1, t2], namespace=locals())
+    problem.add_equation("dt(b) - lap(b) + lift(t1,-1) + lift(t2,-2) = - b*b")
+    problem.add_equation("b(z=0) = 0")
+    problem.add_equation("b(z=1) = 0")
+    kw = {"matsolver": matsolver} if matsolver else {}
+    solver = problem.build_solver(d3.RK222, **kw)
+    x, z = dist.local_grids(xb, zb)
+    b["g"] = np.sin(np.pi * z) * (0.5 + 0.3 * np.exp(0.5j * np.pi * x)
+                                  + 0.2j * np.cos(np.pi * x))
+    return solver, 1e-3
 
 
 def build_poisson_solver(Nx, Ny, matsolver=None, device=None,

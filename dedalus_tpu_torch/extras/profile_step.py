@@ -41,21 +41,28 @@ def build(problem, sizes=()):
     raise ValueError(f"Unknown problem {problem!r}: rb, kdv or shear")
 
 
-def profile_solver(solver, dt, steps, warm=3):
+def profile_solver(solver, dt, steps, warm=3, block=False):
     """Trace `steps` steps of a built solver on the card after `warm`
-    untraced ones."""
+    untraced ones: a loop of `step`, or with `block` one `step_many`
+    after a warm block."""
     from torch.autograd import DeviceType
     from torch.profiler import profile, ProfilerActivity
     if not torch.cuda.is_available():
         raise RuntimeError("profile_step needs a CUDA device")
-    for _ in range(warm):
-        solver.step(dt)
+    if block:
+        solver.step_many(warm, dt)
+    else:
+        for _ in range(warm):
+            solver.step(dt)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(steps):
-            solver.step(dt)
+        if block:
+            solver.step_many(steps, dt)
+        else:
+            for _ in range(steps):
+                solver.step(dt)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # device-side entries only: the CPU-side op entries carry the same
@@ -75,6 +82,7 @@ def profile_solver(solver, dt, steps, warm=3):
     device_ms = device_us / steps / 1e3
     return {
         "pencil_shape": list(solver.pencil_shape), "steps": steps,
+        "block": block,
         "device": torch.cuda.get_device_name(0),
         "wall_ms_per_step": wall_ms,
         "device_ms_per_step": device_ms,

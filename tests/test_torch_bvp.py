@@ -9,8 +9,7 @@ differentials and Power) held against the JAX package on the CPU:
     dense and forced banded, and the same valid-row masks;
   * their solutions agree to 1e-12 relative, dense and banded, and again
     when the port solves the L carried from the JAX solver
-    (tools/carry.py); on the card (marker `cuda`) the complex Poisson
-    forced banded solves through the complex kernel, as on the CPU;
+    (tools/carry.py);
   * the NLBVPs (sin-Jacobi of tests/test_nlbvp.py at dealias 1 and 1.5,
     Bratu N = 32, dense and banded) take the same number of Newton
     iterations; every Newton step taken from the JAX iterate lands within
@@ -334,28 +333,6 @@ def test_complex_poisson_builder_matches_jax():
     js.solve()
     ts.solve()
     assert rel_err(solution(ts), solution(js)) <= RTOL
-
-
-@pytest.mark.cuda
-def test_complex_banded_lbvp_solves_on_card():
-    """Repair test: a complex LBVP forced onto the banded path solves on
-    the card (it raised ValueError in substitution_cuda before the
-    kernel had complex instantiations), and its solution equals the CPU
-    solve's to 1e-12."""
-    if not torch.cuda.is_available():
-        pytest.skip("no CUDA device")
-    from dedalus_tpu_torch.core import fusedstep
-    out = {}
-    for device in ("cuda", "cpu"):
-        before = fusedstep.LAUNCHES["banded_subst"]
-        ts, fields = tbench.build_poisson_solver(64, 32, "banded",
-                                                 device=device,
-                                                 dtype=np.complex128)
-        ts.solve()
-        launched = fusedstep.LAUNCHES["banded_subst"] - before
-        assert launched > 0 if device == "cuda" else launched == 0
-        out[device] = solution(ts)
-    assert rel_err(out["cuda"], out["cpu"]) <= RTOL
 
 
 def test_exact_solutions():

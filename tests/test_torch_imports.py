@@ -37,7 +37,8 @@ def test_scan_covers_the_package():
                  "dedalus_tpu_torch/core/curvilinear.py",
                  "dedalus_tpu_torch/core/polar.py",
                  "dedalus_tpu_torch/core/sphere.py",
-                 "dedalus_tpu_torch/libraries/sphere.py"):
+                 "dedalus_tpu_torch/libraries/sphere.py",
+                 "dedalus_tpu_torch/core/stepgraph.py"):
         assert must in names
 
 

@@ -130,6 +130,69 @@ def test_complex_kernel_matches_plain_on_card(G, NB, q, k, dtype):
     assert float(err) <= (1e-12 if dtype == torch.complex128 else 1e-5)
 
 
+# the kernel above q = 64: 3-D Rayleigh-Benard's q = 80 (its NB = 17 at
+# few groups, and more groups than the card's SMs), k = 16 (the Woodbury
+# form: working vectors of 60 KB in f64, so one block per SM) and k = 40
+# (three column blocks per group), and the bound q = 128
+LARGE_Q_SHAPES = [(3, 17, 80, 1), (200, 5, 80, 1), (3, 4, 80, 16),
+                  (140, 3, 80, 40), (2, 3, 128, 1), (150, 3, 128, 1),
+                  (2, 3, 128, 16)]
+DTYPES = [torch.float64, torch.float32, torch.complex128, torch.complex64]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("G,NB,q,k", LARGE_Q_SHAPES)
+def test_large_q_kernel_matches_plain_on_card(G, NB, q, k, dtype):
+    """Repair test: q = 80 and q = 128 run through the kernel (it refused
+    q > 64 before) in all four dtypes and match the plain version (bound
+    1e-12 relative in float64/complex128, 1e-5 in float32/complex64)."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    rng = np.random.default_rng(23)
+    shape = (G, NB * q) if k == 1 else (G, k, NB * q)
+    if dtype.is_complex:
+        fsub = complex_fsub(rng, G, NB, q, "cuda", dtype)
+        fp = torch.complex(torch.as_tensor(rng.standard_normal(shape)),
+                           torch.as_tensor(rng.standard_normal(shape)))
+    else:
+        fsub = torch_fsub(random_fsub(rng, G, NB, q), "cuda", dtype)
+        fp = torch.as_tensor(rng.standard_normal(shape))
+    fp = fp.to("cuda", dtype)
+    before = tfused.LAUNCHES["banded_subst"]
+    out = tfused.banded_substitution(fsub, fp)
+    ref = tfused.substitution_plain(fsub, fp)
+    torch.cuda.synchronize()
+    assert tfused.LAUNCHES["banded_subst"] == before + 1
+    assert out.shape == fp.shape and out.dtype == dtype
+    err = (out - ref).abs().max() / ref.abs().max()
+    low = dtype in (torch.float32, torch.complex64)
+    assert float(err) <= (1e-5 if low else 1e-12)
+
+
+@pytest.mark.cuda
+def test_complex_banded_lbvp_solves_on_card():
+    """Repair test: a complex LBVP forced onto the banded path solves on
+    the card (it raised ValueError in substitution_cuda before the
+    kernel had complex instantiations), and its solution equals the CPU
+    solve's to 1e-12."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    from dedalus_tpu_torch.extras.bench_problems import build_poisson_solver
+    out = {}
+    for device in ("cuda", "cpu"):
+        before = tfused.LAUNCHES["banded_subst"]
+        ts, fields = build_poisson_solver(64, 32, "banded", device=device,
+                                          dtype=np.complex128)
+        ts.solve()
+        launched = tfused.LAUNCHES["banded_subst"] - before
+        assert launched > 0 if device == "cuda" else launched == 0
+        out[device] = np.concatenate([np.asarray(fields[k]["c"]).ravel()
+                                      for k in ("u", "tau_1", "tau_2")])
+    err = np.max(np.abs(out["cuda"] - out["cpu"])) / np.max(np.abs(out["cpu"]))
+    assert err <= 1e-12
+
+
 def test_single_block_row_is_one_product():
     """NB == 1 (no FwdOp): the solve is lastOp @ f."""
     rng = np.random.default_rng(9)
@@ -146,11 +209,11 @@ def test_single_block_row_is_one_product():
     ("shape", "shapes"), ("device", "CUDA device")])
 def test_wrapper_checks_refuse_bad_input(bad, match):
     """The wrapper checks dtype (one of float64, float32, complex128,
-    complex64, shared by all inputs), contiguity, the q <= 64 limit,
+    complex64, shared by all inputs), contiguity, the q <= 128 limit,
     shapes and (last) the device before it builds or launches
     anything."""
     rng = np.random.default_rng(13)
-    q = 80 if bad == "q" else 4
+    q = tfused.MAX_Q + 1 if bad == "q" else 4
     fsub = torch_fsub(random_fsub(rng, 2, 3, q))
     fp = torch.as_tensor(rng.standard_normal((2, 3 * q)))
     if bad == "dtype":

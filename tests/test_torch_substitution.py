@@ -5,8 +5,9 @@ against the JAX package's Pallas kernel
 tests/test_fusion.py runs it), on random operators and on the factor
 operators of the RB 8x32 solver; complex operators against the JAX
 package's fused XLA substitution (the Pallas kernel's interpret mode
-refuses complex128). The CUDA kernel itself is held against the plain
-version in tests/test_torch_kernel.py.
+refuses complex128), and so are operators at 3-D Rayleigh-Benard's block
+size q = 80, one column and sixteen. The CUDA kernel itself is held
+against the plain version in tests/test_torch_kernel.py.
 """
 
 import jax.numpy as jnp
@@ -113,3 +114,19 @@ def test_plain_matches_jax_complex(G, NB, q):
         torch_fsub(fsub, dtype=torch.complex128), torch.as_tensor(fp))
     assert out.dtype == torch.complex128
     assert rel_err(out.numpy(), ref) <= RTOL
+
+
+@pytest.mark.parametrize("k", [1, 16])
+def test_plain_matches_jax_at_q80(k):
+    """3-D Rayleigh-Benard's block size q = 80 (above the kernel's former
+    bound 64), one column and the k = 16 Woodbury form: the plain version
+    against the JAX fused XLA substitution (bound 1e-13 relative)."""
+    rng = np.random.default_rng(80 + k)
+    G, NB, q = 2, 4, 80
+    fsub = random_fsub(rng, G, NB, q)
+    fp = rng.standard_normal((G, k, NB * q))
+    ref = np.stack([jax_fused_subst(fsub, fp[:, c]) for c in range(k)],
+                   axis=1)
+    out = tfused.substitution_plain(torch_fsub(fsub), torch.as_tensor(
+        fp if k > 1 else fp[:, 0]))
+    assert rel_err(out.numpy().reshape(ref.shape), ref) <= RTOL

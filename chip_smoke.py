@@ -173,7 +173,34 @@ Phases (each prints its own lines; any failure exits non-zero):
      warm and cold ms, the solve kernel's ms on the same operators, the
      byte bound, torch.sum over the same bytes, and <S f, g> = <f, S^T g>
      to 1e-12 in f64.
- 18. The kernels line (banded_subst, banded_subst_bf16, banded_subst_T,
+ 18. The polar geometry (dense: no kernel; each cell runs with the
+     kernel's counts set to 0 just before and read just after, and they
+     must stay 0, as the solve plan says): annulus256x64, the centrifugal
+     convection of examples/centrifugal_convection.py through
+     extras/bench_problems.py build_annulus_convection (AnnulusBasis
+     256x64, RK222, G = 128, S = 526), and disk_libration32x128, the
+     librating disk of examples/libration.py through build_disk_libration
+     (DiskBasis 32x128, SBDF2, dt 1e-3, G = 16, S = 774). Each: a small
+     run (32x16 annulus at dt 0.125, 16x32 disk) card vs CPU after 10
+     steps, its determined fields to 1e-12 of the state; build with its
+     phases, one dense factor, steps/s of a loop of fixed-dt
+     steps, no host sync in a steady step, step_many bit-equal to the
+     loop with no host sync in a replayed block (steps/s of both, the
+     idle share and kernels per step of each; the example's flow
+     property, a host read every 10 steps, is off for these runs), peak
+     memory, a finite state, the boundary conditions and div(u) + tau_p
+     within 1e-10. The annulus's fixed-dt steps run from rest at the
+     CFL's initial dt (0.125); then ANNULUS_CFL_STEPS steps under the
+     example's CFL (cadence 10: the host reads the velocity every 10
+     steps), recording the dt sequence and the refactorizations (a fixed
+     dt after the convection has grown outruns the CFL limit and
+     diverges). The annulus's m = 0
+     pencil is singular in the JAX package's own formulation (a pressure
+     profile against the velocity taus): p and tau_u are determined only
+     up to that null direction, so they are recorded, not compared. The
+     disk's p and taus carry no time derivative and sit on pencils of
+     condition ~1e6: card vs CPU they are held to 1e-10, u to 1e-12.
+ 19. The kernels line (banded_subst, banded_subst_bf16, banded_subst_T,
      banded_subst_T_bf16, each launched on some path of this run), the
      card line, and the result line.
 
@@ -223,6 +250,22 @@ RB3D_SMALL = (16, 16, 32)
 # the complex IVP (build_complex_ivp) and its timed steps
 CIVP_SIZE = (1024, 512)
 CIVP_STEPS = 20
+# the polar cells: the examples' (non-quick) sizes, their small card vs
+# CPU sizes, and the steps of each run
+ANNULUS_SIZE = (256, 64)
+ANNULUS_SMALL = (32, 16)
+ANNULUS_CFL_STEPS = 100
+DISK_SIZE = (32, 128)
+DISK_SMALL = (16, 32)
+# fixed-dt steps of each polar cell: the annulus's, from rest at dt
+# 0.125, end (with the replays and profiles) by iteration ~90, before the
+# growing convection outruns that dt (the example's CFL halves it near
+# iteration 90)
+ANNULUS_STEPS = 20
+DISK_STEPS = 40
+# the annulus fields its pencils determine (p and tau_u: see phase 18)
+ANNULUS_DETERMINED = ("b", "u", "tau_p", "tau_b1", "tau_b2")
+DISK_ALGEBRAIC_BOUND = 1e-10
 RESULTS = {}
 
 
@@ -1894,6 +1937,179 @@ def gradient_cell(label, solver, dt, n, segments, wrt=("initial_state",),
     return rec, first[1]
 
 
+def polar_card_vs_cpu(label, build, steps, held, other_bound):
+    """The same small polar run on the card and on the CPU: each field's
+    max difference relative to the CPU state's largest entry. The fields
+    in `held` must agree to 1e-12, the others to `other_bound` (None:
+    recorded only)."""
+    import numpy as np
+    runs = {}
+    for device in ("cuda", "cpu"):
+        solver, dt = build(device)
+        for _ in range(steps):
+            solver.step(dt)
+        runs[device] = ({v.name: np.array(v["c"]) for v in solver.variables},
+                        float(np.abs(solver.X.cpu().numpy()).max()))
+    (card, _), (cpu, scale) = runs["cuda"], runs["cpu"]
+    errs = {name: float(np.max(np.abs(card[name] - cpu[name])) / scale)
+            for name in cpu}
+    log(f"{label} cuda vs cpu, {steps} steps: " + json.dumps(errs))
+    bad = {k: v for k, v in errs.items()
+           if not v <= (1e-12 if k in held else
+                        (np.inf if other_bound is None else other_bound))}
+    if bad:
+        fail(f"{label} on the card disagrees with the CPU run: {bad}")
+    return errs
+
+
+def polar_checks(label, solver, bcs):
+    """A finite state, the boundary conditions `bcs` ({name: (field,
+    radius, value)}) and div(u) + tau_p, each within 1e-10 (absolute;
+    their sizes relative to the field's largest value are recorded)."""
+    import numpy as np
+    import torch
+    import dedalus_tpu_torch.public as d3
+    if not bool(torch.isfinite(solver.X).all()):
+        fail(f"{label}: non-finite state")
+    names = {v.name: v for v in solver.variables}
+    u, tau_p = names["u"], names["tau_p"]
+    errs = {}
+    for name, (field, r, value) in bcs.items():
+        errs[name] = float(np.max(np.abs(
+            np.array(field(r=r).evaluate()["g"]) - value)))
+    div = np.array((d3.div(u) + tau_p).evaluate()["g"])
+    errs["div(u)+tau_p"] = float(np.max(np.abs(div)))
+    scale = {"u_max": float(np.max(np.abs(np.array(u["g"])))),
+             "grad_u_max": float(np.max(np.abs(np.array(
+                 d3.grad(u).evaluate()["g"]))))}
+    log(f"{label} checks " + json.dumps({**errs, **scale}))
+    bad = {k: v for k, v in errs.items() if not v <= 1e-10}
+    if bad:
+        fail(f"{label}: checks out of bound 1e-10: {bad}")
+    return {**errs, **scale}
+
+
+def polar_steps(rec, label, solver, dt, warm, steps, flow):
+    """The fixed-dt part of a polar cell: `warm` steps, then, without the
+    example's flow-property handler (a host read every 10 steps, read
+    just before and put back after), steps/s over `steps`, no host sync
+    in a steady step, the loop against the replayed block, peak memory."""
+    import torch
+    for _ in range(warm):
+        solver.step(dt)
+    torch.cuda.synchronize()
+    rec["flow_property_max"] = {
+        task["name"]: float(flow.max(task["name"]))
+        for task in flow.properties.tasks}
+    solver.evaluator.handlers.remove(flow.properties)
+    rec["dt"] = dt
+    rec["steps_per_s"] = steps_per_s(solver, dt, steps)
+    check_no_host_syncs(label, rec, solver, dt)
+    rec["step_many"] = step_many_check(label, solver, dt, steps, 10)
+    rec["max_memory_allocated_GB"] = torch.cuda.max_memory_allocated() / 1e9
+    solver.evaluator.handlers.append(flow.properties)
+
+
+def polar_build(rec, build, dt):
+    """Build on the card through `build`, timing it and its phases, and
+    one dense factorization of M + dt L; the pencil shape and the path
+    (dense, as in the JAX package at these sizes)."""
+    import torch
+    torch.cuda.reset_peak_memory_stats()
+    # what earlier phases still hold counts in the peak: recorded apart
+    rec["allocated_before_build_GB"] = torch.cuda.memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    built = build()
+    torch.cuda.synchronize()
+    solver = built[0]
+    rec["build_s"] = time.perf_counter() - t0
+    rec["build_phases_s"] = dict(solver.build_seconds)
+    rec["pencil_shape"] = list(solver.pencil_shape)
+    rec["ops"] = f"{solver.ops.kind} {solver.ops.solver_cls.__name__}"
+    if solver.ops.kind != "dense":
+        fail(f"{rec['cell']} took the {solver.ops.kind} path; the solve "
+             "plan is dense at this size")
+    t0 = time.perf_counter()
+    solver.ops.factor_lincomb(1.0, solver.M_mat, dt, solver.L_mat)
+    torch.cuda.synchronize()
+    rec["factor_s"] = time.perf_counter() - t0
+    return built
+
+
+def annulus_phase(size, cfl_steps, steps):
+    """annulus256x64: centrifugal convection (phase 18). The fixed-dt
+    part runs first, at the CFL's initial dt (0.125, where the example's
+    CFL keeps it while the convection grows from rest); the example's
+    CFL-driven loop follows."""
+    import torch
+    from dedalus_tpu_torch.extras.bench_problems import \
+        build_annulus_convection
+    label = f"annulus{size[0]}x{size[1]}"
+    rec = {"cell": label, "size": list(size),
+           "card_vs_cpu_rel": polar_card_vs_cpu(
+               f"annulus{ANNULUS_SMALL[0]}x{ANNULUS_SMALL[1]}",
+               lambda device: (build_annulus_convection(
+                   *ANNULUS_SMALL, device=device)[0], 0.125), 10,
+               ANNULUS_DETERMINED, None)}
+    solver, cfl, flow = polar_build(
+        rec, lambda: build_annulus_convection(*size, device="cuda"), 0.125)
+    polar_steps(rec, label, solver, cfl.initial_dt, 3, steps, flow)
+    # the example's main loop: the CFL reads the host every 10 steps
+    factorizations = solver.timestepper.factorizations
+    start = solver.iteration
+    t0 = time.perf_counter()
+    for _ in range(cfl_steps):
+        solver.step(cfl.compute_timestep())
+    torch.cuda.synchronize()
+    dts = [h["dt"] for h in cfl.history if h["iteration"] >= start]
+    rec["cfl"] = {"steps": cfl_steps, "start_iteration": start, "dt": dts,
+                  "refactorizations": solver.timestepper.factorizations
+                  - factorizations,
+                  "steps_per_s": cfl_steps / (time.perf_counter() - t0),
+                  "max_Re": float(flow.max("Re"))}
+    log(f"{label} CFL run " + json.dumps(rec["cfl"]))
+    if not (bool(torch.isfinite(solver.X).all())
+            and all(0 < dt <= 0.125 for dt in dts)):
+        fail(f"{label}: the CFL run gave a bad state or dt")
+    rec["breakdown_ms"] = dense_breakdown(label, solver, dts[-1], 10, cfl)
+    fields = {v.name: v for v in solver.variables}
+    Ri, Ro = fields["b"].domain.bases[0].radii
+    rec["checks"] = polar_checks(label, solver, {
+        "u(r=Ri)": (fields["u"], Ri, 0.0), "u(r=Ro)": (fields["u"], Ro, 0.0),
+        "b(r=Ri)": (fields["b"], Ri, 0.0), "b(r=Ro)-1": (fields["b"], Ro, 1.0)})
+    rec["iteration"] = solver.iteration
+    del solver, cfl, flow
+    return rec
+
+
+def disk_phase(size, steps):
+    """disk_libration32x128: the librating disk (phase 18)."""
+    import numpy as np
+    from dedalus_tpu_torch.extras.bench_problems import build_disk_libration
+    label = f"disk_libration{size[0]}x{size[1]}"
+    rec = {"cell": label, "size": list(size),
+           "card_vs_cpu_rel": polar_card_vs_cpu(
+               f"disk_libration{DISK_SMALL[0]}x{DISK_SMALL[1]}",
+               lambda device: build_disk_libration(
+                   *DISK_SMALL, device=device)[:2], 10,
+               ("u",), DISK_ALGEBRAIC_BOUND)}
+    solver, dt, flow, t = polar_build(
+        rec, lambda: build_disk_libration(*size, device="cuda"), 1e-3)
+    polar_steps(rec, label, solver, dt, 10, steps, flow)
+    rec["factorizations"] = solver.timestepper.factorizations
+    u = {v.name: v for v in solver.variables}["u"]
+    rec["checks"] = polar_checks(label, solver, {"u(r=1)": (u, 1.0, 0.0)})
+    # the background is frozen at t = 0, as in the JAX package: the
+    # problem keeps its own time field and the user's t stays 0
+    rec["user_t"] = float(np.asarray(t["g"]).ravel()[0])
+    if solver.problem.time is t or rec["user_t"] != 0.0:
+        fail(f"{label}: the user's time field moved")
+    rec["breakdown_ms"] = dense_breakdown(label, solver, dt, 10)
+    rec["iteration"] = solver.iteration
+    del solver, flow, t
+    return rec
+
+
 def expected_launches(solver, steps, factorizations):
     """One launch per factorization (the Woodbury solve) and one per
     solve, whatever the factor's G-chunk count; also returns that count."""
@@ -2333,6 +2549,40 @@ def main():
     phase_done("17 gradients")
 
     # --------------------------------------------------------- phase 18
+    # the polar geometry: the annulus and disk examples at their sizes,
+    # dense (no kernel: each cell's counts must stay 0)
+    RESULTS["polar"] = {}
+    for cell, run in (
+            ("annulus%dx%d" % ANNULUS_SIZE,
+             lambda: annulus_phase(ANNULUS_SIZE, ANNULUS_CFL_STEPS,
+                                   ANNULUS_STEPS)),
+            ("disk_libration%dx%d" % DISK_SIZE,
+             lambda: disk_phase(DISK_SIZE, DISK_STEPS))):
+        RESULTS["polar"][cell] = dense_path(cell, run)
+        release()
+    summary = {cell: {k: rec.get(k) for k in (
+        "pencil_shape", "ops", "build_s", "factor_s", "steps_per_s",
+        "max_memory_allocated_GB", "allocated_before_build_GB",
+        "host_syncs_per_step")}
+        for cell, rec in RESULTS["polar"].items()}
+    for cell, rec in RESULTS["polar"].items():
+        sm = rec["step_many"]
+        summary[cell].update({
+            "loop_steps_per_s": sm["loop_steps_per_s"],
+            "block_steps_per_s": sm["block_steps_per_s"],
+            "replay_bit_equal": sm["replay_bit_equal"],
+            "host_syncs_per_block": sm["host_syncs_per_block"],
+            "idle_share": [sm["profile_loop"]["idle_share"],
+                           sm["profile_block"]["idle_share"]],
+            "kernels_per_step": [sm["profile_loop"]["kernels_per_step"],
+                                 sm["profile_block"]["kernels_per_step"]],
+            "substitution_launches":
+                RESULTS["dense_path_launches"][cell]})
+    summary["card"] = card
+    log("polar " + json.dumps(summary))
+    phase_done("18 polar")
+
+    # --------------------------------------------------------- phase 19
     # times and bound at each kernel's main path shapes (the solve's
     # kernel at rb3d_128's own factor operators, q = 80, f64; the
     # transposed solve's at the rb2048x1024 shapes, the gradients' main
@@ -2453,7 +2703,7 @@ def main():
         if not any(entry["launches_by_path"].values()):
             fail(f"{entry['name']} was launched on no path of this run")
     RESULTS["kernels"] = kernels["kernels"]
-    phase_done("18 kernels line")
+    phase_done("19 kernels line")
     log(json.dumps(kernels))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -1,12 +1,16 @@
 """
-Arithmetic expression nodes (counterpart of dedalus_tpu/core/arithmetic.py,
-Cartesian subset): Add, ScalarMultiply, MultiplyFields, DotProduct, Power.
+Arithmetic expression nodes (counterpart of dedalus_tpu/core/arithmetic.py:
+the Cartesian products and the angularly constant polar NCCs): Add,
+ScalarMultiply, MultiplyFields, DotProduct, Power.
 
 Grid-space products are pointwise torch ops; LHS products with a
 non-constant-coefficient (NCC) factor assemble multiplication matrices by
-quadrature (tools.jacobi.multiplication_matrix); a constant NCC factor
-(e.g. the unit vector in `b*ez`) becomes a tensor-placement factor times
-a scalar.
+quadrature (tools.jacobi.multiplication_matrix; the annulus's
+radial_multiplication_matrix; the disk's per-(m, spin) Zernike stacks); a
+constant NCC factor (e.g. the unit vector in `b*ez`) becomes a
+tensor-placement factor times a scalar. NCCs that vary with the azimuth of
+a disk or annulus couple the m groups and are not carried yet: they raise
+NotImplementedError.
 """
 
 import numpy as np
@@ -19,8 +23,10 @@ from .domain import Domain
 from .basis import Jacobi
 from ..tools.array import kron as sparse_kron, sparsify
 from ..tools.exceptions import NonlinearOperatorError
+from ..tools.general import is_complex_dtype
 
 from .operators import operand_expression_matrices, ConvertNode
+from .curvilinear import PAIR_J, component_spins
 
 
 def _is_scalar(x):
@@ -38,6 +44,12 @@ def _max_basis(bases):
             if (out.a0, out.b0, out.size, out.bounds) != (b.a0, b.b0, b.size, b.bounds):
                 raise ValueError(f"Incompatible Jacobi bases: {out} vs {b}")
             if b.k > out.k:
+                out = b
+        elif type(out) is type(b) and hasattr(out, "family_key"):
+            # two-axis bases of one family (disk, annulus) at two k levels
+            if out.family_key != b.family_key:
+                raise ValueError(f"Incompatible bases: {out} vs {b}")
+            if getattr(b, "k", 0) > getattr(out, "k", 0):
                 out = b
         elif out != b:
             raise ValueError(f"Incompatible bases along axis: {out} vs {b}")
@@ -71,6 +83,9 @@ def _product_domain(dist, operands):
         merged = _max_basis(axis_bases)
         if len(axis_bases) > 1 and isinstance(merged, Jacobi):
             merged = merged.base_basis()
+        elif len(axis_bases) > 1 and getattr(merged, "k", 0) \
+                and hasattr(merged, "clone_with"):
+            merged = merged.clone_with(k=0)
         bases.append(merged)
     return Domain(dist, tuple(bases))
 
@@ -236,7 +251,9 @@ class ProductBase(Future):
         # multiplication matrices instead. Without layout context, fall
         # back to the conservative basis-level check.
         for axis, basis in enumerate(ncc.domain.bases):
-            if basis is None:
+            if basis is None or basis.dim != 1:
+                # two-axis (polar) NCC bases check their angular
+                # constancy in their own assembly paths
                 continue
             separable = (axis in layout.sep_widths) if layout is not None \
                 else basis.separable
@@ -248,19 +265,32 @@ class ProductBase(Future):
     def _ncc_axis_terms(self, ncc, comp_index, operand):
         """[(scalar, descrs)] kron terms multiplying by ncc component
         `comp_index`: a constant NCC is a scalar multiplier; an NCC varying
-        along one Jacobi axis builds that axis's multiplication matrix."""
+        along one Jacobi axis builds that axis's multiplication matrix; an
+        angularly constant annulus NCC its radial multiplication matrix
+        (an azimuthally varying one never gets here: the layout refuses
+        it, subsystems._ncc_forced_coupled_axes)."""
+        bases = list(ncc.domain.bases)
+        if ncc.tensorsig and any(
+                b is not None and b.dim > 1
+                and hasattr(b, "radial_multiplication_matrix")
+                for b in bases):
+            raise NonlinearOperatorError(
+                "Tensor-valued NCCs on curvilinear bases route through the "
+                "spin assembly paths, not the per-axis path.")
         ccomp = np.asarray(ncc["c"])[comp_index]  # host transform of NCC data
-        return [self._ncc_axis_matrices_from(ccomp, ncc.domain.bases, operand)]
+        return [self._ncc_axis_matrices_from(ccomp, bases, operand)]
 
     def _ncc_axis_matrices_from(self, ccomp, ncc_bases, operand):
         """Per-axis matrices for a single-varying-axis coefficient array
         (`ncc_bases`: the NCC's per-axis basis list, None = constant)."""
         descrs = []
-        for axis in range(self.dist.dim):
+        axis = 0
+        while axis < self.dist.dim:
             nb = ncc_bases[axis]
             ob = operand.domain.bases[axis]
             if nb is None:
                 descrs.append(None)  # constant along axis: scalar handled below
+                axis += 1
             elif isinstance(nb, Jacobi):
                 # collapse other axes of the coefficient array
                 ax_coeffs = np.moveaxis(ccomp, axis, -1)
@@ -276,6 +306,30 @@ class ProductBase(Future):
                 else:
                     M = ob.multiplication_matrix(ax_coeffs.ravel(), nb, dk_out=-ob.k)
                     descrs.append(("full", sparsify(M, cut)))
+                axis += 1
+            elif nb.dim == 2 and hasattr(nb, "radial_multiplication_matrix"):
+                # angularly constant annulus NCC: identity on the azimuth
+                # (m=0 data only), a radial multiplication matrix on the
+                # radius (dedalus_tpu/core/arithmetic.py:507)
+                r_axis = axis + 1
+                moved = np.moveaxis(ccomp, r_axis, -1)
+                tol = 1e-10 * max(np.abs(ccomp).max(), 1e-300)
+                non_const = moved.reshape(-1, moved.shape[-1])[1:]
+                if non_const.size and np.abs(non_const).max() > tol:
+                    raise NonlinearOperatorError(
+                        "LHS coefficient fields on curvilinear bases must be "
+                        "angularly constant (lowest angular mode only).")
+                radial_coeffs = moved.reshape(-1, moved.shape[-1])[0]
+                if ob is None:
+                    raise NonlinearOperatorError(
+                        "Embedding a curvilinear NCC into a constant operand "
+                        "is not supported yet.")
+                M = ob.radial_multiplication_matrix(radial_coeffs, nb.k,
+                                                    k_out=0)
+                descrs.append(None)  # azimuth identity
+                descrs.append(("full", sparsify(
+                    M, self._ncc_sparsify_cutoff(radial_coeffs))))
+                axis += 2
             else:
                 raise NonlinearOperatorError(
                     f"LHS NCCs may not vary along basis {nb!r}.")
@@ -285,6 +339,182 @@ class ProductBase(Future):
             return (complex(value) if np.iscomplexobj(ccomp)
                     else float(value)), descrs
         return None, descrs
+
+    def _polar_spin_basis(self, operand):
+        """The disk or annulus basis of `operand`, or None."""
+        from .polar import DiskBasis, AnnulusBasis
+        for b in operand.domain.bases:
+            if isinstance(b, (DiskBasis, AnnulusBasis)):
+                return b
+        return None
+
+    def _disk_ncc_matrix(self, subproblem, ncc, operand, place_fn):
+        """
+        Pencil matrix of an angularly constant NCC on the DISK, scalar or
+        tensor valued (dedalus_tpu/core/arithmetic.py:579). Zernike radial
+        spaces are (m, spin)-dependent, so each coordinate component c of
+        the NCC contributes per-m radial stacks bracketed by the spin
+        coupling C = U_out P_c U_in^H:
+
+            term(c, i, j) = C_ij * F_out(s_i)[m] diag(f_c) B_in(s_j)[m]
+
+        assembled through ("gblocks", az, stack) descriptors. Profiles are
+        sampled on the 2x radial quadrature grid through the field's own
+        transforms. `place_fn(c)` gives the coordinate-space component
+        placement (outer product or contraction).
+        """
+        from .curvilinear import recombination_matrix
+        from .operators import assemble_group_matrix
+        nb = self._polar_spin_basis(ncc)
+        ob = self._polar_spin_basis(operand)
+        if ob is None:
+            raise NonlinearOperatorError(
+                "Disk NCCs require the operand on the disk basis too.")
+        cs = nb.cs
+        az_axis = nb.first_axis
+        r_axis = az_axis + 1
+        dim = self.dist.dim
+        # profiles on the 2x quadrature grid, via the field's transforms
+        old_scales = ncc.scales
+        ncc.change_scales(2)
+        grid = np.asarray(ncc["g"])
+        ncc.change_scales(old_scales)
+        tdim_n = len(ncc.tensorsig)
+        ncomp_n = int(np.prod(ncc.tshape, dtype=int)) if ncc.tshape else 1
+        flat = grid.reshape((ncomp_n,) + grid.shape[tdim_n:])
+        tol = 1e-10 * max(np.abs(flat).max(), 1e-300)
+        moved = np.moveaxis(flat, 1 + az_axis, 1)
+        if np.abs(moved - moved[:, :1]).max() > tol:
+            raise NonlinearOperatorError(
+                "LHS NCCs on disk bases must be angularly constant "
+                "(sub-classifier azimuthal content at the data's own "
+                "precision is treated as roundoff).")
+        profiles = moved[:, 0].reshape(ncomp_n, -1)   # (ncomp_n, Ngr2)
+        U_in = recombination_matrix(tuple(operand.tensorsig), cs)
+        U_out = recombination_matrix(tuple(self.tensorsig), cs)
+        s_in = component_spins(tuple(operand.tensorsig), cs)
+        s_out = component_spins(tuple(self.tensorsig), cs)
+        real = not is_complex_dtype(self.dtype)
+        out_basis = self.domain.bases[az_axis]
+        terms = []
+        nonzero = [c for c in range(ncomp_n)
+                   if np.abs(profiles[c]).max() > tol]
+        for c in (nonzero or [0]):
+            prof = profiles[c]
+            C = U_out @ place_fn(c) @ U_in.conj().T
+            for i in range(C.shape[0]):
+                for j in range(C.shape[1]):
+                    if abs(C[i, j]) < 1e-14 and nonzero:
+                        continue
+                    F = out_basis.radial_forward_stack(int(s_out[i]), 2.0)
+                    B = ob.radial_backward_stack(int(s_in[j]), 2.0)
+                    stack = np.einsum("gnr,r,grk->gnk", F, prof, B)
+                    E = np.zeros((C.shape[0], C.shape[1]))
+                    E[i, j] = 1.0
+                    descrs = [None] * dim
+                    if real:
+                        az2 = (np.eye(2) * C[i, j].real
+                               + PAIR_J * C[i, j].imag)
+                        descrs[az_axis] = ("full", sparsify(az2, 1e-14))
+                    else:
+                        descrs[az_axis] = ("full", sp.csr_matrix(
+                            np.array([[C[i, j]]])))
+                    descrs[r_axis] = ("gblocks", az_axis, stack)
+                    terms.append((E, descrs))
+        return assemble_group_matrix(terms, operand.domain, operand.tshape,
+                                     self.tshape, subproblem)
+
+    def _polar_tensor_ncc_matrix(self, subproblem, ncc, operand, ncc_index):
+        """
+        Pencil matrix of a tensor-valued, angularly constant annulus NCC
+        (e.g. the centrifugal-convection example's radial-vector gravity
+        b*g; dedalus_tpu/core/arithmetic.py:799). The polar spin
+        recombination U is m-independent, so each NCC COORDINATE component
+        c with radial profile f_c(r) contributes
+            (U_out P_c U_in^H)  (x)  angular-identity  (x)  RadialMult(f_c)
+        with P_c placing component c in the coordinate component space.
+        Real dtypes apply the complex component coupling jointly on the
+        interleaved (cos, -sin) azimuth pair (real_pair_matrix).
+        """
+        from .curvilinear import recombination_matrix, real_pair_matrix
+        from .operators import _axis_identity
+        nb = self._polar_spin_basis(ncc)
+        ob = self._polar_spin_basis(operand)
+        if ob is None or not hasattr(ob, "radial_multiplication_matrix"):
+            raise NonlinearOperatorError(
+                "Tensor-valued polar NCCs require annulus bases on both "
+                "factors (disk regularity spaces are not supported yet).")
+        cs = nb.cs
+        az_axis = nb.first_axis
+        r_axis = az_axis + 1
+        # angular constancy check on coordinate-component grid data, read
+        # at scale 1 to match the radial forward matrix below
+        old_scales = ncc.scales
+        ncc.change_scales(1)
+        grid = np.asarray(ncc["g"])
+        ncc.change_scales(old_scales)
+        ncomp_n = int(np.prod(ncc.tshape, dtype=int)) if ncc.tshape else 1
+        flat = grid.reshape((ncomp_n,) + grid.shape[len(ncc.tshape):])
+        tol = 1e-10 * max(np.abs(flat).max(), 1e-300)
+        moved = np.moveaxis(flat, 1 + az_axis, 1)
+        if np.abs(moved - moved[:, :1]).max() > tol:
+            raise NonlinearOperatorError(
+                "LHS tensor NCCs on polar bases must be angularly constant.")
+        profiles = moved[:, 0].reshape(ncomp_n, -1)  # (ncomp_n, Nr)
+        # radial coefficients of each component profile at the NCC's level
+        fwd = np.asarray(nb._radial_forward_matrix(1.0))
+        U_in = recombination_matrix(tuple(operand.tensorsig), cs)
+        out_tsig = (tuple(ncc.tensorsig) + tuple(operand.tensorsig)
+                    if ncc_index == 0
+                    else tuple(operand.tensorsig) + tuple(ncc.tensorsig))
+        U_out = recombination_matrix(out_tsig, cs)
+        ncomp_op = U_in.shape[0]
+        real = not is_complex_dtype(self.dtype)
+        sep_widths = subproblem.layout.sep_widths
+        nonzero = [c for c in range(ncomp_n)
+                   if np.abs(profiles[c]).max() > tol]
+        total = None
+        for c in (nonzero or [0]):     # all-zero NCC: one zero term (shape)
+            f_coeffs = fwd @ profiles[c]
+            R = sparsify(ob.radial_multiplication_matrix(f_coeffs, nb.k,
+                                                         k_out=0), 1e-12)
+            P_c = np.zeros((ncomp_n, 1))
+            P_c[c, 0] = 1.0
+            place = (np.kron(P_c, np.eye(ncomp_op)) if ncc_index == 0
+                     else np.kron(np.eye(ncomp_op), P_c))
+            C = U_out @ place @ U_in.conj().T
+            if real:
+                # joint (component, azimuth-pair) real representation: the
+                # azimuth slot is the (cos, -sin) pair, so the pair action
+                # is absorbed into the leading factor; that holds while no
+                # wider axis precedes the annulus in the pencil ordering
+                wide = [ax for ax in range(az_axis)
+                        if sep_widths.get(ax, 1) != 1]
+                if wide:
+                    raise NonlinearOperatorError(
+                        "Tensor-valued polar NCCs with real dtype require "
+                        "the annulus azimuth to lead the pencil ordering "
+                        f"(axes {wide} precede it with width > 1).")
+                T = sp.csr_matrix(real_pair_matrix(C))
+            else:
+                T = sp.csr_matrix(C)
+            factors = [T]
+            for axis in range(self.dist.dim):
+                basisx = operand.domain.bases[axis]
+                if axis == az_axis:
+                    if not real:
+                        factors.append(sp.identity(1, format="csr"))
+                elif axis == r_axis:
+                    factors.append(R)
+                else:
+                    sub = 0 if basisx is None else axis - basisx.first_axis
+                    factors.append(_axis_identity(basisx,
+                                                  sep_widths.get(axis), sub))
+            mat = sparse_kron(*factors)
+            total = mat if total is None else total + mat
+        return total
+
+    NCC_ANGULAR_CUTOFF = 1e-10
 
     @staticmethod
     def _ncc_real_eps(arr_or_dtype):
@@ -310,6 +540,27 @@ class ProductBase(Future):
         entry, which would otherwise populate spurious matrix diagonals
         and defeat band detection."""
         return max(1e-12, 10 * ProductBase._ncc_real_eps(arr_or_dtype))
+
+    @staticmethod
+    def _ncc_data_cutoff(arr_or_dtype):
+        """Relative significance cutoff for NCC data, scaled to the data's
+        own precision (f32 data carries ~1e-7-relative roundoff in every
+        coefficient)."""
+        return max(ProductBase.NCC_ANGULAR_CUTOFF,
+                   50 * ProductBase._ncc_real_eps(arr_or_dtype))
+
+    @staticmethod
+    def polar_azimuth_varies(ncc, basis):
+        """Does a disk/annulus NCC vary with azimuth? Grid-space and
+        dtype-aware, the classifier of the JAX package
+        (dedalus_tpu/core/arithmetic.py:1099), shared by the layout
+        (subsystems._ncc_forced_coupled_axes) and the term assembly."""
+        grid = np.asarray(ncc["g"])
+        az = len(ncc.tensorsig) + basis.first_axis
+        moved = np.moveaxis(grid, az, 0)
+        tol = (ProductBase._ncc_data_cutoff(grid)
+               * max(np.abs(grid).max(), 1e-300))
+        return bool(np.abs(moved - moved[:1]).max() > tol)
 
     def _assemble_ncc_matrix(self, subproblem, ncc, operand, tensor_factor_fn):
         """
@@ -365,6 +616,29 @@ class MultiplyFields(ProductBase):
 
     def expression_matrices(self, subproblem, vars, **kw):
         ncc_index, ncc, operand = self._split_ncc(vars, subproblem.layout)
+        pol = self._polar_spin_basis(ncc)
+        if pol is not None and (ncc.tensorsig or not hasattr(
+                pol, "radial_multiplication_matrix")):
+            if hasattr(pol, "radial_multiplication_matrix"):
+                # annulus: spin-independent radial space, one matrix
+                M = self._polar_tensor_ncc_matrix(subproblem, ncc, operand,
+                                                  ncc_index)
+            else:
+                # disk: per-(m, spin) Zernike stacks
+                n_n = int(np.prod(ncc.tshape, dtype=int)) if ncc.tshape else 1
+                n_op = int(np.prod(operand.tshape, dtype=int)) \
+                    if operand.tshape else 1
+
+                def place(c):
+                    P = np.zeros((n_n, 1))
+                    P[c, 0] = 1.0
+                    return (np.kron(P, np.eye(n_op)) if ncc_index == 0
+                            else np.kron(np.eye(n_op), P))
+
+                M = self._disk_ncc_matrix(subproblem, ncc, operand, place)
+            op_mats = operand_expression_matrices(operand, subproblem, vars,
+                                                  **kw)
+            return {var: M @ mat for var, mat in op_mats.items()}
         ncomp_op = int(np.prod([cs.dim for cs in operand.tensorsig], dtype=int)) \
             if operand.tensorsig else 1
         ncomp_ncc_shape = ncc.tshape
@@ -462,6 +736,17 @@ class DotProduct(ProductBase):
                 return sparse_kron(sp.identity(n_lead_op, format="csr"),
                                    sp.csr_matrix(row), sp.csr_matrix(col))
 
+        pol = self._polar_spin_basis(ncc)
+        if pol is not None and not hasattr(pol, "radial_multiplication_matrix"):
+            # disk contraction (e.g. pipe flow's u@grad(w0)): the same
+            # coordinate placement feeds the per-(m, spin) stack path
+            def place(cflat):
+                comp = tuple(np.unravel_index(cflat, ncc.tshape))
+                return np.asarray(tensor_factor(comp).toarray())
+            M = self._disk_ncc_matrix(subproblem, ncc, operand, place)
+            op_mats = operand_expression_matrices(operand, subproblem, vars,
+                                                  **kw)
+            return {var: M @ mat for var, mat in op_mats.items()}
         M = self._assemble_ncc_matrix(subproblem, ncc, operand, tensor_factor)
         op_mats = operand_expression_matrices(operand, subproblem, vars, **kw)
         return {var: M @ mat for var, mat in op_mats.items()}

@@ -235,8 +235,15 @@ def batched_expression_matrices(expr, layout, vars):
 
 def _batched_ncc_matrices(expr, layout, vars):
     """NCC products (MultiplyFields/DotProduct): group-independent axis
-    matrices batch directly."""
+    matrices batch directly; polar tensor and disk NCCs take the per-group
+    path."""
     ncc_index, ncc, operand = expr._split_ncc(vars, layout)
+    pol = expr._polar_spin_basis(ncc)
+    if pol is not None and (ncc.tensorsig
+                            or not hasattr(pol, "radial_multiplication_matrix")):
+        # polar tensor NCCs (intertwiner sandwich) and disk NCCs (per-m
+        # Zernike stacks) assemble through the per-group path
+        raise BatchUnsupported("polar tensor/disk NCC")
     tensor_factor_fn = _ncc_tensor_factor_fn(expr, ncc, operand, ncc_index)
     comp_indices = list(np.ndindex(*ncc.tshape)) if ncc.tshape else [()]
     my_terms = []

@@ -1,8 +1,8 @@
 """
 Coordinate systems (counterpart of dedalus_tpu/core/coords.py: Cartesian
-systems and the two-sphere). Coordinates are pure metadata: axis names and
-ordering, plus, for the curvilinear system, the small unitary intertwiner
-mapping tensor components to spin components.
+systems, polar coordinates and the two-sphere). Coordinates are pure
+metadata: axis names and ordering, plus, for the curvilinear systems, the
+small unitary intertwiner mapping tensor components to spin components.
 """
 
 import numpy as np
@@ -112,6 +112,37 @@ class AzimuthalCoordinate(Coordinate):
 class CurvilinearCoordinateSystem(CoordinateSystem):
     """Base for curvilinear systems: defines spin intertwiners
     (reference: core/coords.py CurvilinearCoordinateSystem)."""
+
+
+class PolarCoordinates(CurvilinearCoordinateSystem):
+    """
+    Polar coordinates (azimuth, radius); spin ordering (-, +)
+    (dedalus_tpu/core/coords.py:241; reference: core/coords.py:255
+    PolarCoordinates).
+    """
+
+    spin_ordering = (-1, +1)
+    dim = 2
+    right_handed = True
+
+    def __init__(self, azimuth, radius):
+        self.names = (azimuth, radius)
+        self.azimuth = AzimuthalCoordinate(azimuth, cs=self)
+        self.radius = Coordinate(radius, cs=self)
+        self.coords = (self.azimuth, self.radius)
+        self.dist = None
+
+    def __repr__(self):
+        return f"PolarCoordinates{self.names}"
+
+    @classmethod
+    def U_forward(cls):
+        """The unitary coordinate -> spin map of one tensor index:
+        u[+-] = (u[r] +- 1j u[phi]) / sqrt(2), rows in spin order (-, +),
+        columns (phi, r) (reference: core/coords.py:282 _U_forward)."""
+        Ui = {+1: np.array([+1j, 1]) / np.sqrt(2),
+              -1: np.array([-1j, 1]) / np.sqrt(2)}
+        return np.array([Ui[spin] for spin in cls.spin_ordering])
 
 
 class S2Coordinates(CurvilinearCoordinateSystem):

@@ -46,18 +46,58 @@ def component_spins(tensorsig, cs):
 
 
 @functools.lru_cache(maxsize=None)
-def recombination_pair_matrix(tensorsig, cs, backward):
-    """The coordinate -> spin map of a tensor signature (`backward`: spin
-    -> coordinate, its inverse U^H) in the real (component, pair) form
-    Re(U) (x) I2 + Im(U) (x) J. U is the kron over tensor indices of
-    cs.U_forward() (identity on indices of other systems). Cached, so the
-    device copy is made once."""
+def recombination_matrix(tensorsig, cs):
+    """The complex unitary coordinate -> spin map (ncomp, ncomp) of a
+    tensor signature: the kron over tensor indices of cs.U_forward()
+    (identity on indices of other systems). Cached, so the device copy is
+    made once."""
     U = np.array([[1.0]])
     for tcs in tensorsig:
         U = np.kron(U, tcs.U_forward() if tcs == cs else np.eye(tcs.dim))
-    if backward:
-        U = U.conj().T
-    return np.kron(U.real, np.eye(2)) + np.kron(U.imag, PAIR_J)
+    return U
+
+
+@functools.lru_cache(maxsize=None)
+def recombination_conj_matrix(tensorsig, cs):
+    """U^H of recombination_matrix: the spin -> coordinate map (cached)."""
+    return recombination_matrix(tensorsig, cs).conj().T
+
+
+def real_pair_matrix(C):
+    """Real representation of a complex matrix C on (component, pair)
+    space: Re(C) (x) I2 + Im(C) (x) J."""
+    return np.kron(C.real, np.eye(2)) + np.kron(C.imag, PAIR_J)
+
+
+@functools.lru_cache(maxsize=None)
+def recombination_pair_matrix(tensorsig, cs, backward):
+    """The coordinate -> spin map of a tensor signature (`backward`: spin
+    -> coordinate, its inverse U^H) in the real (component, pair) form
+    Re(U) (x) I2 + Im(U) (x) J. Cached, so the device copy is made
+    once."""
+    U = recombination_conj_matrix(tensorsig, cs) if backward \
+        else recombination_matrix(tensorsig, cs)
+    return real_pair_matrix(U)
+
+
+def apply_recombination(data, tensorsig, cs, tdim, az_axis, complex_dtype,
+                        backward):
+    """Coordinate -> spin components (`backward`: spin -> coordinate) of
+    data with tensor axes [0, tdim) and the azimuth at tdim + az_axis: a
+    real dtype applies the (component, pair) form jointly on each
+    azimuth pair, a complex dtype the complex map on the components."""
+    tensorsig = tuple(tensorsig)
+    if not complex_dtype:
+        R = recombination_pair_matrix(tensorsig, cs, backward)
+        return apply_component_pair_matrix(data, R, tdim, az_axis)
+    U = recombination_conj_matrix(tensorsig, cs) if backward \
+        else recombination_matrix(tensorsig, cs)
+    tshape = data.shape[:tdim]
+    ncomp = int(np.prod(tshape, dtype=int)) if tdim else 1
+    spatial = data.shape[tdim:]
+    flat = data.reshape((ncomp,) + tuple(spatial))
+    out = torch.tensordot(match_precision(U, data), flat, dims=([1], [0]))
+    return out.reshape(tuple(tshape) + tuple(spatial))
 
 
 def apply_component_pair_matrix(data, R, tdim, az_axis):
@@ -85,6 +125,14 @@ def apply_component_pair_matrix(data, R, tdim, az_axis):
     return out.reshape(tuple(tshape) + tuple(spatial))
 
 
+def promote_complex(a, b):
+    """`a` as complex when `b` is complex and `a` is not (torch's einsum
+    takes one dtype, where jnp.einsum promotes)."""
+    if b.is_complex() and not a.is_complex():
+        return a.to(b.dtype)
+    return a
+
+
 def apply_group_stack(data, stack, axis_groups, axis_target, group_width):
     """
     Apply per-group matrices along a coupled axis: out[..., g, ..., j, ...] =
@@ -95,7 +143,8 @@ def apply_group_stack(data, stack, axis_groups, axis_target, group_width):
     core/transforms.py:1260-1288; the JAX package's product is an XLA
     einsum outside any Pallas kernel).
     """
-    stack = match_precision(stack, data)
+    stack = promote_complex(match_precision(stack, data), data)
+    data = promote_complex(data, stack)
     G = stack.shape[0]
     d = torch.movedim(data, (axis_groups, axis_target), (-2, -1))
     lead = d.shape[:-2]
@@ -107,15 +156,18 @@ def apply_group_stack(data, stack, axis_groups, axis_target, group_width):
 
 class SpinBasisMixin:
     """
-    Shared machinery for 2D spin-weighted bases (here the sphere):
+    Shared machinery for 2D spin-weighted bases (disk, annulus, sphere):
     azimuth (separable, Fourier) x coupled axis with m- and spin-dependent
     matrix stacks (reference: core/basis.py:1561 SpinRecombinationBasis +
     the per-m transform loops in core/transforms.py:1252,1343).
 
-    Concrete bases provide: `cs`, `azimuth_basis`, `sub_group_shape(0)`,
+    Concrete bases provide: `cs`, `complex` (a complex dtype),
+    `azimuth_basis`, `sub_group_shape(0)`, and either
     `radial_forward_stack(s, scale)` and `radial_backward_stack(s, scale)`
-    (G, out, in) stacks over the m groups.
+    (G, out, in) stacks over the m groups, or their own `_radial_apply`.
     """
+
+    complex = False
 
     def forward_transform(self, gdata, axis, scale, library=None,
                           tensorsig=(), sub_axis=0):
@@ -127,11 +179,10 @@ class SpinBasisMixin:
         out = gdata
         spins = component_spins(tensorsig, self.cs)
         if np.any(spins != 0):
-            R = recombination_pair_matrix(tuple(tensorsig), self.cs, False)
-            out = apply_component_pair_matrix(out, R, tdim, az_axis - tdim)
-        return self._apply_radial_stacks(
-            out, tdim, az_axis, axis, spins,
-            lambda s: self.radial_forward_stack(s, scale))
+            out = apply_recombination(out, tensorsig, self.cs, tdim,
+                                      az_axis - tdim, self.complex, False)
+        return self._radial_apply(out, tdim, az_axis, axis, spins, scale,
+                                  forward=True)
 
     def backward_transform(self, cdata, axis, scale, library=None,
                            tensorsig=(), sub_axis=0):
@@ -141,13 +192,24 @@ class SpinBasisMixin:
         tdim = len(tensorsig)
         az_axis = axis - 1
         spins = component_spins(tensorsig, self.cs)
-        out = self._apply_radial_stacks(
-            cdata, tdim, az_axis, axis, spins,
-            lambda s: self.radial_backward_stack(s, scale))
+        out = self._radial_apply(cdata, tdim, az_axis, axis, spins, scale,
+                                 forward=False)
         if np.any(spins != 0):
-            R = recombination_pair_matrix(tuple(tensorsig), self.cs, True)
-            out = apply_component_pair_matrix(out, R, tdim, az_axis - tdim)
+            out = apply_recombination(out, tensorsig, self.cs, tdim,
+                                      az_axis - tdim, self.complex, True)
         return out
+
+    def _radial_apply(self, data, tdim, az_axis, r_axis, spins, scale,
+                      forward):
+        """Coupled-axis transform: per-spin, per-m stacks; a basis whose
+        transform is m- and spin-independent (the annulus) overrides this
+        with one product."""
+        if forward:
+            stack_fn = lambda s: self.radial_forward_stack(s, scale)  # noqa: E731
+        else:
+            stack_fn = lambda s: self.radial_backward_stack(s, scale)  # noqa: E731
+        return self._apply_radial_stacks(data, tdim, az_axis, r_axis, spins,
+                                         stack_fn)
 
     def _apply_radial_stacks(self, data, tdim, az_axis, r_axis, spins,
                              stack_fn):

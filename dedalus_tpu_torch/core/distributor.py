@@ -1,7 +1,7 @@
 """
 Distributor: device placement and field factories (counterpart of
-dedalus_tpu/core/distributor.py, single-device path; Cartesian systems and
-the two-sphere).
+dedalus_tpu/core/distributor.py, single-device path; Cartesian systems,
+polar coordinates (disk, annulus) and the two-sphere).
 
 The distributor carries the torch device every field and solver array of
 the problem lives on. It defaults to `cuda` and raises when no CUDA device
@@ -56,6 +56,16 @@ class Distributor:
         return Field(self, bases=bases, name=name, tensorsig=(coordsys,),
                      dtype=dtype or self.dtype)
 
+    def TensorField(self, coordsys, name=None, bases=None, dtype=None,
+                    order=2):
+        """A field with `order` indices over `coordsys` (or the tensor
+        signature `coordsys` when it is a tuple)."""
+        from .field import Field
+        tensorsig = coordsys if isinstance(coordsys, tuple) \
+            else (coordsys,) * order
+        return Field(self, bases=bases, name=name, tensorsig=tensorsig,
+                     dtype=dtype or self.dtype)
+
     # -------------------------------------------------------------- helpers
 
     def get_axis(self, coord):
@@ -107,8 +117,9 @@ class Distributor:
         return grid.reshape(shape)
 
     def local_grids(self, *bases, scales=None):
-        """Broadcast-shaped grids; a two-axis basis yields one grid per
-        sub-axis (`phi, theta = dist.local_grids(sphere)`)."""
+        """Broadcast-shaped grids at `scales` (e.g. the dealias scale); a
+        two-axis basis yields one grid per sub-axis (`phi, r =
+        dist.local_grids(disk)`, `phi, theta = dist.local_grids(sphere)`)."""
         scales = self.remedy_scales(scales)
         out = []
         for b in bases:

@@ -64,3 +64,9 @@ class Domain(metaclass=CachedClass):
 
     def __repr__(self):
         return f"Domain({self.bases})"
+
+    def substitute_basis(self, old_basis, new_basis):
+        """This domain with `old_basis` replaced by `new_basis` on every
+        axis it spans."""
+        bases = tuple(new_basis if b is old_basis else b for b in self.bases)
+        return Domain(self.dist, bases)

@@ -345,7 +345,10 @@ class Field(Operand):
         if isinstance(value, torch.Tensor):
             value = value.to(device=self.dist.device, dtype=torch_dtype(dtype))
         else:
-            value = torch.as_tensor(np.asarray(value, dtype=dtype),
+            # a copy: the value may be a read-only view (np.broadcast_to,
+            # as the polar examples set radial profiles), which a CPU
+            # tensor would otherwise share
+            value = torch.as_tensor(np.array(value, dtype=dtype),
                                     device=self.dist.device)
         data = value.expand(shape).contiguous()
         # Only after validation: discard pending solver data, count mutation.

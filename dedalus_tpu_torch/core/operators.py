@@ -1,8 +1,9 @@
 """
 Symbolic linear operators (counterpart of dedalus_tpu/core/operators.py:
-the Cartesian operators, and the dispatch of grad, div, lap, skew and the
-integrals to the sphere's spin operators in core/polar.py and
-core/sphere.py).
+the Cartesian operators, the azimuthal interpolation and average of the
+disk and annulus, and the dispatch of grad, div, lap, skew, trace, the
+components, interpolation, lifts and the integrals to the spin operators
+of the disk, annulus and sphere in core/polar.py and core/sphere.py).
 
 Design: every linear operator is described by a list of **terms**; each term
 is (tensor_factor, [axis_descriptor ...]) with one descriptor per distributor
@@ -13,8 +14,8 @@ axis. Descriptors:
   ('blocks', B)          per-group blocks B[g] (gs_out, gs_in) on a separable
                          axis (group-diagonal action)
   ('gblocks', ax, B)     per-group blocks B[g] on a coupled axis, the group
-                         read from the separable axis `ax` (the sphere's
-                         per-m colatitude stacks)
+                         read from the separable axis `ax` (the per-m
+                         radial and colatitude stacks)
 
 One descriptor set drives BOTH
   * host-side pencil matrix assembly (`subproblem_matrix`: kron of factors
@@ -30,8 +31,9 @@ from .field import Field
 from .future import Future, ev
 from .domain import Domain
 from .basis import Jacobi
-from .coords import CartesianCoordinates, S2Coordinates
-from .curvilinear import SpinBasisMixin, apply_group_stack
+from .coords import (CartesianCoordinates, PolarCoordinates, S2Coordinates,
+                     AzimuthalCoordinate)
+from .curvilinear import SpinBasisMixin, apply_group_stack, promote_complex
 from ..tools.array import (kron as sparse_kron, sparsify, apply_matrix_torch,
                             match_precision)
 from ..tools.exceptions import NonlinearOperatorError
@@ -137,9 +139,8 @@ def assemble_group_matrix(terms, operand_domain, tshape_in, tshape_out,
 
 def apply_axis_blocks(data, blocks, axis):
     """Apply per-group blocks (G, so, si) along an axis of size G*si."""
-    blocks = match_precision(blocks, data)
-    if blocks.is_complex() and not data.is_complex():
-        data = data.to(blocks.dtype)
+    blocks = promote_complex(match_precision(blocks, data), data)
+    data = promote_complex(data, blocks)
     G, so, si = blocks.shape
     moved = torch.movedim(data, axis, -1)
     moved = moved.reshape(moved.shape[:-1] + (G, si))
@@ -150,7 +151,8 @@ def apply_axis_blocks(data, blocks, axis):
 
 def apply_tensor_factor(data, factor, tshape_in, tshape_out):
     """Apply a (ncomp_out, ncomp_in) factor to the flattened tensor axes."""
-    factor = match_precision(factor, data)
+    factor = promote_complex(match_precision(factor, data), data)
+    data = promote_complex(data, factor)
     tdim_in = len(tshape_in)
     spatial = data.shape[tdim_in:]
     flat = data.reshape((int(np.prod(tshape_in, dtype=int)) if tshape_in else 1,) + spatial)
@@ -366,22 +368,41 @@ class ConvertNode(LinearOperator):
 
     def _build_terms(self, device):
         """One descriptor per axis: Jacobi derivative-level lifts and
-        constant embeddings; a two-axis (sphere) basis converts only to an
-        equal one, the identity, and a constant embeds into it with one
-        descriptor per sub-axis."""
-        descrs = []
+        constant embeddings, crossed with the terms of a two-axis
+        (curvilinear) basis's own conversion (conversion_terms: the
+        disk's per-spin stacks, the annulus's radial matrix, the
+        sphere's identity); a constant embeds into a two-axis basis with
+        one descriptor per sub-axis."""
+        dim = self.operand.domain.dim
+        base_descrs = [None] * dim
+        multi_terms = None
+        handled = set()
         for axis, (b_in, b_out) in enumerate(zip(self.operand.domain.bases,
                                                  self.target_bases)):
             if b_in is not None and b_in.dim > 1:
-                if b_in is not b_out:
-                    b_in.check_conversion(b_out)
-                descrs.append(None)
+                if b_in is b_out or id(b_in) in handled:
+                    continue
+                handled.add(id(b_in))
+                if multi_terms is not None:
+                    raise NotImplementedError(
+                        "Multiple curvilinear conversions.")
+                multi_terms = b_in.conversion_terms(
+                    b_out, self.operand.tensorsig, self.operand.tshape)
             elif b_in is None and b_out is not None and b_out.dim > 1:
-                descrs.append(b_out.constant_component_descr(
-                    axis - b_out.first_axis, device))
+                base_descrs[axis] = b_out.constant_component_descr(
+                    axis - b_out.first_axis, device)
             else:
-                descrs.append(_conversion_descr(b_in, b_out, device=device))
-        return [(None, descrs)]
+                base_descrs[axis] = _conversion_descr(b_in, b_out,
+                                                      device=device)
+        if multi_terms is None:
+            return [(None, base_descrs)]
+        out = []
+        for factor, dmap in multi_terms:
+            descrs = list(base_descrs)
+            for axis, d in dmap.items():
+                descrs[axis] = d
+            out.append((factor, descrs))
+        return out
 
     def terms(self):
         return self._build_terms(device=False)
@@ -475,13 +496,102 @@ class InterpolateCartesian(LinearOperator):
         return [(None, descrs)]
 
 
+class AzimuthalInterpolate(Future):
+    """
+    Interpolation at phi = position on a disk or annulus, evaluated in
+    GRID space (dedalus_tpu/core/operators.py:525): the uniform azimuth
+    grid is contracted with the exact trigonometric interpolation row and
+    the result broadcast back as a phi-CONSTANT field on the same domain.
+    Tensor components come out in the coordinate frame at phi = position.
+    It mixes the azimuthal groups, so it has no per-pencil matrix: RHS and
+    output tasks only.
+    """
+
+    name = "interp"
+    natural_layout = "g"
+
+    _row_cache = {}
+
+    def __init__(self, operand, basis, position):
+        self.basis = basis
+        self.position = float(position)
+        super().__init__(operand)
+
+    @property
+    def operand(self):
+        return self.args[0]
+
+    def rebuild(self, new_args):
+        return AzimuthalInterpolate(new_args[0], self.basis, self.position)
+
+    def _build_metadata(self):
+        operand = self.args[0]
+        self.domain = operand.domain
+        self.tensorsig = operand.tensorsig
+        self.dtype = operand.dtype
+
+    def __repr__(self):
+        return f"interp({self.args[0]}, phi={self.position})"
+
+    @classmethod
+    def _interp_row(cls, Ng, phi0, complex_dtype):
+        """Exact trig-interpolation row over Ng uniform azimuth samples
+        (closed-form Dirichlet kernel): row @ samples = f(phi0) for any f
+        band-limited to the grid. Even Ng carries a half-weight
+        (cosine-only) Nyquist mode, matching real-DFT storage. Cached, so
+        the device copy is made once."""
+        key = (Ng, round(phi0, 15), complex_dtype)
+        if key not in cls._row_cache:
+            phis = 2 * np.pi * np.arange(Ng) / Ng
+            delta = phi0 - phis
+            if complex_dtype:
+                ms = np.fft.fftfreq(Ng, d=1.0 / Ng)
+                row = np.exp(1j * ms[None, :] * delta[:, None]).sum(1) / Ng
+            elif Ng % 2 == 0:
+                M = Ng // 2
+                row = (1.0 + 2.0 * sum(np.cos(m * delta) for m in range(1, M))
+                       + np.cos(M * delta)) / Ng
+            else:
+                M = (Ng - 1) // 2
+                row = (1.0 + 2.0 * sum(np.cos(m * delta)
+                                       for m in range(1, M + 1))) / Ng
+            cls._row_cache[key] = np.ascontiguousarray(row)
+        return cls._row_cache[key]
+
+    def ev_impl(self, ctx):
+        data = ev(self.operand, ctx, "g")
+        ax = self.tdim + self.basis.first_axis
+        row = self._interp_row(data.shape[ax], self.position,
+                               data.is_complex())
+        val = torch.tensordot(data, match_precision(row, data),
+                              dims=([ax], [0]))
+        return val.unsqueeze(ax).expand(data.shape)
+
+    def expression_matrices(self, subproblem, vars, **kw):
+        raise NotImplementedError(
+            "Azimuthal interpolation mixes azimuthal groups and has no "
+            "per-pencil matrix; use it on the RHS or in output tasks.")
+
+
+def _polar_basis(basis):
+    """Is `basis` a disk or annulus basis?"""
+    from .polar import DiskBasis, AnnulusBasis
+    return isinstance(basis, (DiskBasis, AnnulusBasis))
+
+
 @parseable("interp", "Interpolate")
 def Interpolate(operand, coord, position):
     if np.isscalar(operand):
         return operand
     coord = _resolve_coord(operand, coord)
-    if operand.domain.get_basis(coord) is None:
+    basis = operand.domain.get_basis(coord)
+    if basis is None:
         return operand
+    if _polar_basis(basis):
+        if isinstance(coord, AzimuthalCoordinate):
+            return AzimuthalInterpolate(operand, basis, position)
+        from .polar import PolarInterpolate
+        return PolarInterpolate(operand, position)
     return InterpolateCartesian(operand, coord, position)
 
 
@@ -571,6 +681,76 @@ def Integrate(operand, coords=None):
     return _integrate(operand, coords)[0]
 
 
+class AzimuthalAverage(LinearOperator):
+    """
+    Average over the azimuth of a disk or annulus (or of their circle
+    edge): the m = 0 projection, identity on the m = 0 group and zero
+    elsewhere (dedalus_tpu/core/operators.py:724; reference:
+    core/basis.py:5202 AzimuthalAverage). The output is phi-constant on
+    the same domain; its per-m blocks are constant, so it may stand on an
+    equation's LHS.
+    """
+
+    name = "azavg"
+
+    def __init__(self, operand, basis):
+        self.basis = basis
+        super().__init__(operand)
+
+    def rebuild(self, new_args):
+        return AzimuthalAverage(new_args[0], self.basis)
+
+    def _build_metadata(self):
+        operand = self.args[0]
+        self.domain = operand.domain
+        self.tensorsig = operand.tensorsig
+        self.dtype = operand.dtype
+
+    def terms(self):
+        basis = self.basis
+        if hasattr(basis, "group_m"):
+            ms = np.asarray(basis.group_m())
+            gs = basis.sub_group_shape(0)
+        else:
+            # 1-D azimuthal basis (S1 edge fields): group 0 is m = 0
+            ms = np.arange(basis.n_groups)
+            gs = basis.group_shape
+        blocks = np.zeros((len(ms), gs, gs))
+        blocks[ms == 0] = np.eye(gs)
+        descrs = [None] * self.operand.domain.dim
+        descrs[basis.first_axis] = ("blocks", blocks)
+        return [(None, descrs)]
+
+
+@parseable("azavg", "AzimuthalAverage")
+def AzimuthalAverageFactory(operand, coord=None):
+    """AzimuthalAverage over the disk, annulus or circle basis of
+    `operand` (the sphere's and the shell's wait for their slices)."""
+    if np.isscalar(operand):
+        return operand
+    if coord is not None:
+        coord = _resolve_coord(operand, coord)
+        if not isinstance(coord, AzimuthalCoordinate):
+            raise ValueError("AzimuthalAverage requires an azimuthal "
+                             "coordinate.")
+        basis = operand.domain.get_basis(coord)
+    else:
+        def is_azimuthal(b):
+            if b.dim >= 2:
+                return isinstance(b.coordsystem.coords[0],
+                                  AzimuthalCoordinate)
+            return isinstance(getattr(b, "coord", None), AzimuthalCoordinate)
+        basis = next((b for b in operand.domain.bases
+                      if b is not None and is_azimuthal(b)), None)
+    if basis is None:
+        raise ValueError("Operand has no azimuthal basis.")
+    if basis.dim > 1 and not _polar_basis(basis):
+        raise NotImplementedError(
+            f"AzimuthalAverage over {basis!r} is not carried by the port "
+            "yet (disk, annulus and circle bases are).")
+    return AzimuthalAverage(operand, basis)
+
+
 @parseable("ave", "Average")
 def Average(operand, coords=None):
     """Integral over the selected coordinates divided by their volume
@@ -619,7 +799,17 @@ class Lift(LinearOperator):
         return [(None, descrs)]
 
 
-parseables["lift"] = Lift
+def LiftFactory(operand, basis, n):
+    """Lift into `basis` via mode `n`: the polar lift on a disk or annulus
+    (core/polar.PolarLift), else the Cartesian one
+    (dedalus_tpu/core/operators.py:854)."""
+    if _polar_basis(basis):
+        from .polar import PolarLift
+        return PolarLift(operand, basis, n)
+    return Lift(operand, basis, n)
+
+
+parseables["lift"] = LiftFactory
 
 
 # ----------------------------------------------------------------------
@@ -844,16 +1034,20 @@ class CartesianLaplacian(CartesianVectorOperator):
         self._build_metadata_common(operand, self.cs, tuple(operand.tensorsig))
 
 
-# grad, div and lap dispatch on the coordinate system: the sphere's to the
-# spin-ladder operators of core/polar.py (dedalus_tpu/core/operators.py:
-# 1185-1227)
+# grad, div and lap dispatch on the coordinate system: the polar and
+# sphere systems' to the spin-ladder operators of core/polar.py
+# (dedalus_tpu/core/operators.py:1170-1227)
+
+def _spin_cs(cs):
+    return isinstance(cs, (PolarCoordinates, S2Coordinates))
+
 
 @parseable("grad", "Gradient")
 def Gradient(operand, cs=None):
     if np.isscalar(operand):
         return 0
     cs = cs or operand.dist.coordsystems[0]
-    if isinstance(cs, S2Coordinates):
+    if _spin_cs(cs):
         from .polar import PolarGradient
         return PolarGradient(operand, cs)
     return CartesianGradient(operand, cs)
@@ -863,7 +1057,7 @@ def Gradient(operand, cs=None):
 def Divergence(operand, index=0):
     if np.isscalar(operand):
         return 0
-    if isinstance(operand.tensorsig[index], S2Coordinates):
+    if _spin_cs(operand.tensorsig[index]):
         from .polar import PolarDivergence
         return PolarDivergence(operand, index)
     return CartesianDivergence(operand, index)
@@ -873,10 +1067,10 @@ def Divergence(operand, index=0):
 def Laplacian(operand, cs=None):
     if np.isscalar(operand):
         return 0
-    s2 = cs or operand.dist.coordsystems[0]
-    if isinstance(s2, S2Coordinates):
+    cs2 = cs or operand.dist.coordsystems[0]
+    if _spin_cs(cs2):
         from .polar import PolarLaplacian
-        return PolarLaplacian(operand, s2)
+        return PolarLaplacian(operand, cs2)
     return CartesianLaplacian(operand, cs)
 
 
@@ -901,13 +1095,31 @@ class Skew(LinearOperator):
         return [(np.kron(R, np.identity(rest)), [None] * operand.domain.dim)]
 
 
+@parseable("skew", "Skew")
 def SkewFactory(operand):
-    """skew(u): the spin form on a sphere basis (core/polar.PolarSkew),
-    else the Cartesian rotation (dedalus_tpu/core/operators.py:1339)."""
+    """skew(u): the spin form on a disk, annulus or sphere basis
+    (core/polar.PolarSkew), else the Cartesian rotation
+    (dedalus_tpu/core/operators.py:1339)."""
     if any(isinstance(b, SpinBasisMixin) for b in operand.domain.bases):
         from .polar import PolarSkew
         return PolarSkew(operand)
     return Skew(operand)
+
+
+@parseable("radial")
+def Radial(operand, index=0):
+    """The radial coordinate component of index `index` of a polar tensor
+    (core/polar.PolarComponent; dedalus_tpu/core/operators.py:1349)."""
+    from .polar import PolarComponent
+    return PolarComponent(operand, "radial", index)
+
+
+@parseable("azimuthal")
+def Azimuthal(operand, index=0):
+    """The azimuthal coordinate component of index `index` of a polar
+    tensor (dedalus_tpu/core/operators.py:1356)."""
+    from .polar import PolarComponent
+    return PolarComponent(operand, "azimuthal", index)
 
 
 # ----------------------------------------------------------------------
@@ -941,8 +1153,18 @@ class TraceOperator(LinearOperator):
 
 @parseable("trace", "Trace")
 def Trace(operand):
+    """Trace factory: the spin metric (-,+) + (+,-) where the contracted
+    polar or sphere indices are stored as spin components (the interiors
+    and the circle edges), else the coordinate delta
+    (dedalus_tpu/core/operators.py:1363)."""
     if np.isscalar(operand):
         return 0
+    ts = operand.tensorsig
+    if len(ts) >= 2 and _spin_cs(ts[0]):
+        from .polar import SpinTrace, S1SpinTransformMixin
+        if any(isinstance(b, (SpinBasisMixin, S1SpinTransformMixin))
+               for b in operand.domain.bases):
+            return SpinTrace(operand)
     return TraceOperator(operand)
 
 

@@ -30,10 +30,12 @@ def _public_parseables():
     from . import operators as ops
     from .arithmetic import DotProduct
     from .sphere import MulCosine
-    return {"Lift": ops.Lift, "Gradient": ops.Gradient,
+    return {"Lift": ops.LiftFactory, "Gradient": ops.Gradient,
             "Divergence": ops.Divergence, "Laplacian": ops.Laplacian,
             "Differentiate": ops.Differentiate,
             "UnaryGridFunction": ops.UnaryGridFunction,
+            "RadialComponent": ops.Radial,
+            "AzimuthalComponent": ops.Azimuthal,
             "DotProduct": DotProduct, "dot": DotProduct,
             "MulCosine": MulCosine}
 

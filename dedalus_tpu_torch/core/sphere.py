@@ -236,12 +236,13 @@ class SphereBasis(SpinBasisMixin, Basis):
         col[0, 0] = 1.0 / Y00
         return ("full", col)
 
-    def check_conversion(self, target):
+    def conversion_terms(self, target, tensorsig, tshape):
         """Sphere -> sphere conversion is the identity (no k ladder), and
         only onto a sphere of the same shape and radius."""
         if not isinstance(target, SphereBasis) or target.shape != self.shape \
                 or target.radius != self.radius:
             raise ValueError(f"No conversion from {self} to {target}.")
+        return [(None, {})]
 
 
 class MulCosine(PolarSpinOperator):

@@ -47,6 +47,23 @@ def _ncc_forced_coupled_axes(variables, equations):
 
     forced = set()
 
+    def check_polar_azimuth(ncc_expr, basis):
+        """A disk/annulus NCC that varies with azimuth would couple the m
+        groups (dedalus_tpu/core/subsystems.py:77 couples_azimuth_polar,
+        by the classifier the term assembly shares): the port does not
+        carry m-coupled polar pencils, so it refuses the problem here
+        rather than assemble an m-uncoupled answer."""
+        ncc = ncc_expr if isinstance(ncc_expr, Field) \
+            else ncc_expr.evaluate()
+        if ProductBase.polar_azimuth_varies(ncc, basis):
+            raise NotImplementedError(
+                f"An LHS NCC that varies with the azimuth of {basis!r} "
+                "couples the azimuthal (m) groups; the port does not carry "
+                "m-coupled polar pencils yet (the JAX package assembles "
+                "them in _polar_coupled_azimuth_terms and "
+                "_disk_coupled_ncc_matrix). Move the term to the RHS or "
+                "make the NCC angularly constant.")
+
     def walk(expr):
         if not isinstance(expr, Future):
             return
@@ -56,6 +73,14 @@ def _ncc_forced_coupled_axes(variables, equations):
             if len(ncc_sides) == 1:
                 for axis, basis in enumerate(ncc_sides[0].domain.bases):
                     if basis is None:
+                        continue
+                    if basis.dim != 1:
+                        # two-axis (curvilinear) NCC: angularly constant
+                        # radial profiles keep the per-m pencils
+                        from .polar import DiskBasis, AnnulusBasis
+                        if (isinstance(basis, (DiskBasis, AnnulusBasis))
+                                and axis == basis.first_axis):
+                            check_polar_azimuth(ncc_sides[0], basis)
                         continue
                     sub = axis - basis.first_axis
                     if basis.sub_separable(sub):

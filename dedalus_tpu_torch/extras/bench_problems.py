@@ -13,9 +13,12 @@ waves-on-a-string EVP (examples/waves_on_a_string.py); and the
 progression's sphere shallow-water IVP (benchmarks/progression.py
 build_shallow_water, with the balanced-height LBVP of
 examples/shallow_water.py), the 3-D Rayleigh-Benard IVP of the
-progression's config 5 (benchmarks/progression.py build_rb3d) and a
-complex ComplexFourier x ChebyshevT IVP with a quadratic term. Each builds
-on `device` (default `cuda`; pass "cpu" to run on the host).
+progression's config 5 (benchmarks/progression.py build_rb3d), a
+complex ComplexFourier x ChebyshevT IVP with a quadratic term, and the
+polar examples: centrifugal convection in an annulus
+(examples/centrifugal_convection.py) and the librating disk
+(examples/libration.py). Each builds on `device` (default `cuda`; pass
+"cpu" to run on the host).
 """
 
 import numpy as np
@@ -478,3 +481,117 @@ def build_shallow_water(Nphi, Ntheta, dtype, matsolver=None, balance=True,
     kw = {"matsolver": matsolver} if matsolver else {}
     solver = problem.build_solver(d3.RK222, **kw)
     return solver, 300.0 * second, balance_solver
+
+
+def build_annulus_convection(Nphi, Nr, dtype=np.float64, device=None):
+    """
+    Centrifugal convection in an annulus: the equations, bases, taus,
+    initial state, CFL and flow property of
+    examples/centrifugal_convection.py (reference:
+    examples/ivp_annulus_centrifugal_convection), without its file
+    handlers. AnnulusBasis (Nphi, Nr), radii (1/2, 3/2), dealias 3/2,
+    RK222, Rayleigh 1e6, Prandtl 1; the buoyancy b*g against the radial
+    gravity g = gravity*rvec is a tensor LHS NCC. The example's reduced
+    default is 256 x 64. Returns (solver, cfl, flow): the CFL as the
+    example sets it (cadence 10, safety 0.5, max_dt 0.125) and the flow
+    property Re = sqrt(u@u)/nu at cadence 10.
+    """
+    import dedalus_tpu_torch.public as d3
+    eta, Rayleigh, Prandtl = 3, 1e6, 1
+    dealias, max_timestep = 3 / 2, 0.125
+    Ri, Ro = 2 / (1 + eta), 2 * eta / (1 + eta)
+    coords = d3.PolarCoordinates("phi", "r")
+    dist = d3.Distributor(coords, dtype=dtype, device=device)
+    annulus = d3.AnnulusBasis(coords, shape=(Nphi, Nr), radii=(Ri, Ro),
+                              dealias=dealias, dtype=dtype)
+    edge = annulus.outer_edge
+    p = dist.Field(name="p", bases=annulus)
+    b = dist.Field(name="b", bases=annulus)
+    u = dist.VectorField(coords, name="u", bases=annulus)
+    tau_p = dist.Field(name="tau_p")
+    tau_b1 = dist.Field(name="tau_b1", bases=edge)
+    tau_b2 = dist.Field(name="tau_b2", bases=edge)
+    tau_u1 = dist.VectorField(coords, name="tau_u1", bases=edge)
+    tau_u2 = dist.VectorField(coords, name="tau_u2", bases=edge)
+    kappa = (Rayleigh * Prandtl) ** (-1 / 2)
+    nu = (Rayleigh / Prandtl) ** (-1 / 2)
+    phi, r = dist.local_grids(annulus)
+    rvec = dist.VectorField(coords, name="rvec", bases=annulus)
+    rvec["g"][1] = np.broadcast_to(np.asarray(r), rvec["g"][1].shape)
+    lift_basis = annulus.derivative_basis(2)
+    lift = lambda A, n: d3.Lift(A, lift_basis, n)  # noqa: E731
+    gravity = 2 * (eta - 1) / (eta + 1)
+    g = gravity * rvec
+    problem = d3.IVP([p, b, u, tau_p, tau_b1, tau_b2, tau_u1, tau_u2],
+                     namespace=locals())
+    problem.add_equation("div(u) + tau_p = 0")
+    problem.add_equation("dt(b) - kappa*lap(b) + lift(tau_b1, -1) "
+                         "+ lift(tau_b2, -2) = - u@grad(b)")
+    problem.add_equation("dt(u) - nu*lap(u) + grad(p) + b*g "
+                         "+ lift(tau_u1, -1) + lift(tau_u2, -2) = - u@grad(u)")
+    problem.add_equation("b(r=Ri) = 0")
+    problem.add_equation("u(r=Ri) = 0")
+    problem.add_equation("b(r=Ro) = 1")
+    problem.add_equation("u(r=Ro) = 0")
+    problem.add_equation("integ(p) = 0")
+    solver = problem.build_solver(d3.RK222)
+    b.fill_random("g", seed=42, distribution="normal", scale=1e-3)
+    b["g"] *= (r - Ri) * (Ro - r)
+    b["g"] += np.log(r / Ri) / np.log(Ro / Ri)
+    cfl = d3.CFL(solver, initial_dt=max_timestep, max_dt=max_timestep,
+                 safety=0.5, cadence=10, threshold=0.1, max_change=1.5,
+                 min_change=0.5)
+    cfl.add_velocity(u)
+    flow = d3.GlobalFlowProperty(solver, cadence=10)
+    flow.add_property(np.sqrt(u @ u) / nu, name="Re")
+    return solver, cfl, flow
+
+
+def build_disk_libration(Nphi, Nr, dtype=np.float64, device=None):
+    """
+    The librational instability in a disk: the equations, bases, taus,
+    background flow and initial state of examples/libration.py (reference:
+    examples/ivp_disk_libration), without its file handlers. DiskBasis
+    (Nphi, Nr), radius 1, dealias 3/2, SBDF2, Ekman 1/800, Ro 40. The
+    background u0 = cos(t) u0_real - sin(t) u0_imag is built on the
+    user's field t, passed as IVP(..., time=t) exactly as the example
+    does; the problem keeps its own time field, so t stays 0 and u0 stays
+    u0_real (as in the JAX package). The example's size is 32 x 128.
+    Returns (solver, dt, flow, t): dt = 1e-3, the flow property u2 = u@u
+    at cadence 10, and the user's time field.
+    """
+    from scipy.special import jv
+    import dedalus_tpu_torch.public as d3
+    Ekman, Ro, dealias = 1 / 2 / 20 ** 2, 40, 3 / 2
+    coords = d3.PolarCoordinates("phi", "r")
+    dist = d3.Distributor(coords, dtype=dtype, device=device)
+    disk = d3.DiskBasis(coords, shape=(Nphi, Nr), radius=1, dealias=dealias,
+                        dtype=dtype)
+    edge = disk.edge
+    u = dist.VectorField(coords, name="u", bases=disk)
+    p = dist.Field(name="p", bases=disk)
+    tau_u = dist.VectorField(coords, name="tau_u", bases=edge)
+    tau_p = dist.Field(name="tau_p")
+    phi, r = dist.local_grids(disk)
+    nu = Ekman
+    lift = lambda A: d3.Lift(A, disk, -1)  # noqa: E731
+    u0_real = dist.VectorField(coords, bases=disk)
+    u0_imag = dist.VectorField(coords, bases=disk)
+    profile = jv(1, (1 - 1j) * r / np.sqrt(2 * Ekman)) \
+        / jv(1, (1 - 1j) / np.sqrt(2 * Ekman))
+    u0_real["g"][0] = Ro * np.real(profile)
+    u0_imag["g"][0] = Ro * np.imag(profile)
+    t = dist.Field()
+    u0 = np.cos(t) * u0_real - np.sin(t) * u0_imag
+    problem = d3.IVP([p, u, tau_u, tau_p], time=t, namespace=locals())
+    problem.add_equation("div(u) + tau_p = 0")
+    problem.add_equation("dt(u) - nu*lap(u) + grad(p) + lift(tau_u) "
+                         "= - u@grad(u0) - u0@grad(u)")
+    problem.add_equation("u(r=1) = 0")
+    problem.add_equation("integ(p) = 0")
+    solver = problem.build_solver(d3.SBDF2)
+    u.fill_random("g", seed=42, distribution="normal")
+    u.low_pass_filter(scales=0.25)
+    flow = d3.GlobalFlowProperty(solver, cadence=10)
+    flow.add_property(u @ u, name="u2")
+    return solver, 1e-3, flow, t

@@ -1,6 +1,6 @@
 """
 Flow diagnostics and adaptive timestep control (counterpart of
-dedalus_tpu/extras/flow_tools.py, Cartesian geometry).
+dedalus_tpu/extras/flow_tools.py: Cartesian and polar geometry).
 
 CFL frequencies are computed on the solver's device and reduced to one
 host scalar per velocity; flow properties reduce the numpy arrays their
@@ -40,31 +40,58 @@ def interval_cfl_spacing(basis):
     return dealias * (np.gradient(grid) if N > 1 else np.array([np.inf]))
 
 
+def _device_profile(values, axis, ndim, like):
+    """A per-axis spacing profile as a tensor on `like`'s device, shaped
+    for broadcasting over the grid."""
+    return torch.as_tensor(_axis_profile(values, axis, ndim),
+                           dtype=like.dtype, device=like.device)
+
+
 def advective_cfl_frequency(u, ug):
     """
-    Advective CFL frequency sum_i |u_i| / dx_i of velocity field `u`, from
-    its grid tensor `ug` on the dealias grid (the Cartesian branch of the
-    reference's core/basis.py:6086-6215 *AdvectiveCFL.cfl_spacing). The
-    polar, spherical and direct-product spacings come with the curvilinear
-    slice (ROADMAP queue 1, slice 12).
+    Advective CFL frequency of velocity field `u`, from its grid tensor
+    `ug` on the dealias grid (reference: core/basis.py:6086-6215
+    *AdvectiveCFL.cfl_spacing): sum_i |u_i| / dx_i with Cartesian
+    spacings, or |u_phi| / dphi + |u_r| / dr on a disk or annulus
+    (components (phi, r)). The spherical and direct-product spacings come
+    with their slices (ROADMAP queue 1).
     """
-    from ..core.coords import CartesianCoordinates, Coordinate
+    from ..core.coords import (CartesianCoordinates, Coordinate,
+                               PolarCoordinates)
     cs = u.tensorsig[0]
+    dist = u.dist
+    if isinstance(cs, PolarCoordinates):
+        basis = u.domain.bases[dist.get_axis(cs.coords[1])]
+        if basis is None:
+            return ug.new_zeros(ug.shape[1:])
+        # the azimuthal spacing r / mmax on the annulus, R / mmax on the
+        # disk; the radial one the dealias-rescaled gradient of the grid
+        # (dedalus_tpu/extras/flow_tools.py:53 polar_frequency)
+        r = np.ravel(basis.global_grids(basis.dealias)[1])
+        mmax = max(basis.shape[0] // 2 - 1, 0)
+        if mmax == 0:
+            az = np.array([np.inf])
+        elif hasattr(basis, "radii"):
+            az = r / mmax
+        else:
+            az = np.array([basis.radius / mmax])
+        dr = basis.dealias[1] * (np.gradient(r) if r.size > 1
+                                 else np.array([np.inf]))
+        r_axis = basis.first_axis + 1
+        return (ug[0].abs() / _device_profile(az, r_axis, dist.dim, ug)
+                + ug[1].abs() / _device_profile(dr, r_axis, dist.dim, ug))
     if not isinstance(cs, (CartesianCoordinates, Coordinate)):
         raise NotImplementedError(
             f"CFL spacing for {type(cs).__name__}: dedalus_tpu_torch has "
-            "the Cartesian spacings only (curvilinear ones come with "
+            "the Cartesian and polar spacings only (the others come with "
             "ROADMAP queue 1, slice 12)")
-    dist = u.dist
     total = 0.0
     for i, coord in enumerate(cs.coords):
         axis = dist.get_axis(coord)
         basis = u.domain.bases[axis]
         if basis is None:
             continue
-        dx = torch.as_tensor(
-            _axis_profile(interval_cfl_spacing(basis), axis, dist.dim),
-            dtype=ug.dtype, device=ug.device)
+        dx = _device_profile(interval_cfl_spacing(basis), axis, dist.dim, ug)
         total = total + ug[i].abs() / dx
     if np.isscalar(total):
         total = ug.new_zeros(ug.shape[1:])

@@ -50,16 +50,36 @@ def add_solver(cls):
     return cls
 
 
+def floor_pivots(LU):
+    """LU factors with every pivot below S * eps * max|LU| of its group
+    raised to that floor (keeping its phase; an exact zero becomes +floor).
+    Such a pivot marks a structurally singular pencil (the annulus
+    example's m = 0 group: a pressure profile against the velocity taus),
+    where the plain factors amplify the right-hand side's roundoff by
+    1/pivot (~1e35) and the null-space component of the state grows each
+    step until it overflows. With the floor a solve returns a bounded
+    member of the solution set. The pivots of a nonsingular pencil are
+    far above the floor and stay bit for bit as they were. All on the
+    device: nothing waits on it."""
+    diag = LU.diagonal(dim1=-2, dim2=-1)
+    eps = torch.finfo(LU.real.dtype if LU.is_complex() else LU.dtype).eps
+    floor = LU.shape[-1] * eps * LU.abs().amax(dim=(-2, -1))[..., None]
+    phase = torch.sgn(diag)
+    phase = torch.where(phase == 0, torch.ones_like(phase), phase)
+    new = torch.where(diag.abs() < floor, floor * phase, diag)
+    return torch.diagonal_scatter(LU, new, dim1=-2, dim2=-1)
+
+
 @add_solver
 class BatchedLUFactorized:
     """Batched dense LU with partial pivoting (the default dense solver off
-    the TPU). The factorization runs without its error check, so no
-    factor waits on the device."""
+    the TPU), its pivots floored (floor_pivots). The factorization runs
+    without its error check, so no factor waits on the device."""
 
     @staticmethod
     def factor(matrices):
         LU, pivots, _ = torch.linalg.lu_factor_ex(matrices)
-        return LU, pivots
+        return floor_pivots(LU), pivots
 
     @staticmethod
     def solve(aux, rhs):

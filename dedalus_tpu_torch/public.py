@@ -3,18 +3,21 @@ User-facing API: `import dedalus_tpu_torch.public as d3`
 (counterpart of dedalus_tpu/public.py; reference: dedalus/public.py:4-14).
 """
 
-from .core.coords import Coordinate, CartesianCoordinates, S2Coordinates
+from .core.coords import (Coordinate, CartesianCoordinates, PolarCoordinates,
+                          S2Coordinates)
 from .core.distributor import Distributor
 from .core.domain import Domain
 from .core.basis import (Jacobi, ChebyshevT, Legendre, RealFourier,
                          ComplexFourier, Fourier)
+from .core.polar import DiskBasis, AnnulusBasis
 from .core.sphere import SphereBasis, MulCosine
 from .core.field import Field
 from .core.problems import IVP, LBVP, NLBVP, EVP
 from .core.operators import (
     AdvectiveCFL, Differentiate, Convert, Interpolate, Integrate, Average,
-    Lift, Gradient, Divergence, Laplacian, SkewFactory as Skew, Trace,
-    TimeDerivative, UnaryGridFunction, dt)
+    AzimuthalAverageFactory as AzimuthalAverage, LiftFactory as Lift,
+    Gradient, Divergence, Laplacian, SkewFactory as Skew, Radial, Azimuthal,
+    Trace, TimeDerivative, UnaryGridFunction, dt)
 from .core.arithmetic import Add, Multiply, DotProduct, Power
 from .core.timesteppers import (schemes, add_scheme, MultistepIMEX,
                                 RungeKuttaIMEX, CNAB1, SBDF1, CNAB2, MCNAB2,
@@ -40,6 +43,10 @@ integ = Integrate
 ave = Average
 skew = Skew
 lift = Lift
+radial = Radial
+azimuthal = Azimuthal
+Component = RadialComponent = Radial
+AzimuthalComponent = Azimuthal
 interp = Interpolate
 convert = Convert
 
@@ -48,6 +55,10 @@ def VectorField(dist, *args, **kw):
     """Module-level field factory (reference: core/field.py exports);
     equivalent to the Distributor method."""
     return dist.VectorField(*args, **kw)
+
+
+def TensorField(dist, *args, **kw):
+    return dist.TensorField(*args, **kw)
 
 
 def ScalarField(dist, *args, **kw):

@@ -14,7 +14,9 @@ them; this module imports nothing of the JAX package):
 
 so that both packages can step, solve or eigensolve from one state on
 one assembled system, separately from the check that they assemble the
-same system.
+same system. The pencil layout is the same for every geometry the port
+carries, so a polar (disk or annulus) solver's dense system carries as a
+Cartesian one's does (tests/test_torch_disk.py, test_torch_annulus.py).
 """
 
 import types

@@ -200,7 +200,26 @@ Phases (each prints its own lines; any failure exits non-zero):
      up to that null direction, so they are recorded, not compared. The
      disk's p and taus carry no time derivative and sit on pencils of
      condition ~1e6: card vs CPU they are held to 1e-10, u to 1e-12.
- 19. The kernels line (banded_subst, banded_subst_bf16, banded_subst_T,
+ 19. The spherical shell, dense (no kernel: each cell's substitution
+     counts must stay 0): shell_convection96x48x6, the example
+     examples/shell_convection.py through
+     extras/bench_problems.py build_shell_convection (ShellBasis 96x48x6,
+     SBDF2 at dt 0.05, one pencil per (m, ell): G = 2304, S = 78), and
+     rotconv32x16x16, the progression's rotating shell convection
+     through build_rotconv (RK222 at dt 1e-4; the colatitude-varying
+     cross(ez, u) couples ell, one pencil per m: G = 16). The shell cell:
+     card vs CPU at 16x8x6 after 20 steps (every field to 1e-12 of the
+     state), build with its phases, one dense factor, steps/s of a loop
+     and of the replayed step_many block (bit-equal to the loop, no host
+     sync in a steady step or a replayed block, idle share and kernels
+     per step of each), peak memory, the floored-pivot count of the
+     last factorization (its ell = 0 pencils apart), the boundary
+     conditions and trace(grad_u) + tau_p (the constraint rows of L X)
+     within 1e-12. The rotconv cell: card vs CPU at 16x8x8 after 5 steps
+     (u and T to 1e-12 of the state; p and the taus, with no dt term on
+     pencils of condition ~1e10, to ROTCONV_ALGEBRAIC_BOUND), build,
+     factor, steps/s, and a finite state.
+ 20. The kernels line (banded_subst, banded_subst_bf16, banded_subst_T,
      banded_subst_T_bf16, each launched on some path of this run), the
      card line, and the result line.
 
@@ -266,6 +285,24 @@ DISK_STEPS = 40
 # the annulus fields its pencils determine (p and tau_u: see phase 18)
 ANNULUS_DETERMINED = ("b", "u", "tau_p", "tau_b1", "tau_b2")
 DISK_ALGEBRAIC_BOUND = 1e-10
+# the shell (phase 19): the example's size and timestep, the progression's
+# rotating shell at a reduced size (dense, as the JAX package chooses
+# there; its 64x32x32 is banded at q = 392, beyond the kernel's q <= 128)
+SHELL_SIZE = (96, 48, 6)
+SHELL_SMALL = (16, 8, 6)
+SHELL_STEPS = 20
+ROTCONV_SIZE = (32, 16, 16)
+ROTCONV_SMALL = (16, 8, 8)
+ROTCONV_STEPS = 10
+# rotconv's pencils have condition ~9.4e9: one solve of one system by
+# two LU implementations differs by ~1e-12 of the solution
+# (tests/test_torch_shell.py ROTCONV_ALGEBRAIC_BOUND). Card vs CPU after
+# 5 RK222 steps holds the fields with a time derivative (u, T) to 1e-12
+# of the state and the algebraic ones (p and the taus, no dt term) to
+# 1e-9 (measured: p 1.16e-10, tau_u2 1.79e-11; NVIDIA H100 80GB HBM3,
+# 700.00 W)
+ROTCONV_DYNAMIC = ("u", "T")
+ROTCONV_ALGEBRAIC_BOUND = 1e-9
 RESULTS = {}
 
 
@@ -1937,35 +1974,53 @@ def gradient_cell(label, solver, dt, n, segments, wrt=("initial_state",),
     return rec, first[1]
 
 
-def polar_card_vs_cpu(label, build, steps, held, other_bound):
-    """The same small polar run on the card and on the CPU: each field's
-    max difference relative to the CPU state's largest entry. The fields
-    in `held` must agree to 1e-12, the others to `other_bound` (None:
-    recorded only)."""
+def polar_card_vs_cpu(label, build, steps, held, other_bound,
+                      bound=1e-12):
+    """The same small curvilinear run on the card and on the CPU: each
+    field's max difference relative to the CPU state's largest entry
+    (a field with no name by its index, var<i>). The fields in `held`
+    (None: every field) must agree to `bound`, the others to
+    `other_bound` (None: recorded only)."""
     import numpy as np
     runs = {}
     for device in ("cuda", "cpu"):
         solver, dt = build(device)
         for _ in range(steps):
             solver.step(dt)
-        runs[device] = ({v.name: np.array(v["c"]) for v in solver.variables},
+        runs[device] = ({v.name or f"var{i}": np.array(v["c"])
+                         for i, v in enumerate(solver.variables)},
                         float(np.abs(solver.X.cpu().numpy()).max()))
     (card, _), (cpu, scale) = runs["cuda"], runs["cpu"]
     errs = {name: float(np.max(np.abs(card[name] - cpu[name])) / scale)
             for name in cpu}
     log(f"{label} cuda vs cpu, {steps} steps: " + json.dumps(errs))
     bad = {k: v for k, v in errs.items()
-           if not v <= (1e-12 if k in held else
+           if not v <= (bound if held is None or k in held else
                         (np.inf if other_bound is None else other_bound))}
     if bad:
         fail(f"{label} on the card disagrees with the CPU run: {bad}")
     return errs
 
 
-def polar_checks(label, solver, bcs):
+def constraint_residual(solver, eq_index=0):
+    """max |L X| over the valid rows of equation `eq_index`: a constraint
+    (no dt term) as the solver's own pencil matrices apply it."""
+    from dedalus_tpu_torch.core.subsystems import _system_sizes
+    _, eq_sizes, _ = _system_sizes(solver.layout, solver.equations,
+                                   solver.variables)
+    row0 = sum(eq_sizes[:eq_index])
+    LX = solver.ops.matvec(solver.L_mat, solver.X) * solver._row_mask()
+    return float(LX[:, row0:row0 + eq_sizes[eq_index]].abs().max())
+
+
+def polar_checks(label, solver, bcs, bound=1e-10, constraint=None):
     """A finite state, the boundary conditions `bcs` ({name: (field,
-    radius, value)}) and div(u) + tau_p, each within 1e-10 (absolute;
-    their sizes relative to the field's largest value are recorded)."""
+    radius, value)}) and the incompressibility constraint, each within
+    `bound` (absolute; their sizes relative to the field's largest value
+    are recorded). The constraint is div(u) + tau_p on the grid, or with
+    `constraint` = (name, equation index) that equation's rows of L X
+    (the shell's first-order trace(grad_u) + tau_p, whose grid value
+    carries the truncation of the rvec*lift(tau) product)."""
     import numpy as np
     import torch
     import dedalus_tpu_torch.public as d3
@@ -1977,37 +2032,43 @@ def polar_checks(label, solver, bcs):
     for name, (field, r, value) in bcs.items():
         errs[name] = float(np.max(np.abs(
             np.array(field(r=r).evaluate()["g"]) - value)))
-    div = np.array((d3.div(u) + tau_p).evaluate()["g"])
-    errs["div(u)+tau_p"] = float(np.max(np.abs(div)))
+    if constraint is None:
+        div = np.array((d3.div(u) + tau_p).evaluate()["g"])
+        errs["div(u)+tau_p"] = float(np.max(np.abs(div)))
+    else:
+        errs[constraint[0]] = constraint_residual(solver, constraint[1])
     scale = {"u_max": float(np.max(np.abs(np.array(u["g"])))),
              "grad_u_max": float(np.max(np.abs(np.array(
                  d3.grad(u).evaluate()["g"]))))}
     log(f"{label} checks " + json.dumps({**errs, **scale}))
-    bad = {k: v for k, v in errs.items() if not v <= 1e-10}
+    bad = {k: v for k, v in errs.items() if not v <= bound}
     if bad:
-        fail(f"{label}: checks out of bound 1e-10: {bad}")
+        fail(f"{label}: checks out of bound {bound:g}: {bad}")
     return {**errs, **scale}
 
 
 def polar_steps(rec, label, solver, dt, warm, steps, flow):
-    """The fixed-dt part of a polar cell: `warm` steps, then, without the
-    example's flow-property handler (a host read every 10 steps, read
-    just before and put back after), steps/s over `steps`, no host sync
-    in a steady step, the loop against the replayed block, peak memory."""
+    """The fixed-dt part of a polar or shell cell: `warm` steps, then,
+    without the example's flow-property handler (a host read every 10
+    steps, read just before and put back after; `flow` None: none),
+    steps/s over `steps`, no host sync in a steady step, the loop against
+    the replayed block, peak memory."""
     import torch
     for _ in range(warm):
         solver.step(dt)
     torch.cuda.synchronize()
-    rec["flow_property_max"] = {
-        task["name"]: float(flow.max(task["name"]))
-        for task in flow.properties.tasks}
-    solver.evaluator.handlers.remove(flow.properties)
+    if flow is not None:
+        rec["flow_property_max"] = {
+            task["name"]: float(flow.max(task["name"]))
+            for task in flow.properties.tasks}
+        solver.evaluator.handlers.remove(flow.properties)
     rec["dt"] = dt
     rec["steps_per_s"] = steps_per_s(solver, dt, steps)
     check_no_host_syncs(label, rec, solver, dt)
     rec["step_many"] = step_many_check(label, solver, dt, steps, 10)
     rec["max_memory_allocated_GB"] = torch.cuda.max_memory_allocated() / 1e9
-    solver.evaluator.handlers.append(flow.properties)
+    if flow is not None:
+        solver.evaluator.handlers.append(flow.properties)
 
 
 def polar_build(rec, build, dt):
@@ -2107,6 +2168,85 @@ def disk_phase(size, steps):
     rec["breakdown_ms"] = dense_breakdown(label, solver, dt, 10)
     rec["iteration"] = solver.iteration
     del solver, flow, t
+    return rec
+
+
+def floored_pivot_counts(solver):
+    """The floored-pivot count of the solver's last factorization
+    (Solver.floored_pivots, read here where the phase reads anyway): the
+    total, the groups it marks, and the same over the ell = 0 pencils,
+    the first place a singular shell pencil would appear."""
+    counts = solver.floored_pivots.cpu()
+    colat = solver.layout.sep_axes[1] if len(solver.layout.sep_axes) > 1 \
+        else None
+    groups = list(solver.layout.groups())
+    ell0 = [i for i, g in enumerate(groups)
+            if colat is not None and g[colat] == 0]
+    out = {"total": int(counts.sum()), "groups": int((counts > 0).sum()),
+           "ell0_groups": len(ell0),
+           "ell0_total": int(counts[ell0].sum()) if ell0 else None}
+    log("floored pivots " + json.dumps(out))
+    return out
+
+
+def shell_phase(size, steps):
+    """shell_convection96x48x6: examples/shell_convection.py (phase 19)."""
+    from dedalus_tpu_torch.extras.bench_problems import \
+        build_shell_convection
+    label = "shell_convection%dx%dx%d" % size
+    rec = {"cell": label, "size": list(size),
+           "card_vs_cpu_rel": polar_card_vs_cpu(
+               "shell_convection%dx%dx%d" % SHELL_SMALL,
+               lambda device: build_shell_convection(
+                   *SHELL_SMALL, device=device)[:2], 20, None, None)}
+    solver, dt, flow = polar_build(
+        rec, lambda: build_shell_convection(*size, device="cuda"), 0.05)
+    polar_steps(rec, label, solver, dt, 3, steps, flow)
+    rec["floored_pivots"] = floored_pivot_counts(solver)
+    rec["factorizations"] = solver.timestepper.factorizations
+    fields = {v.name: v for v in solver.variables}
+    Ri, Ro = fields["b"].domain.bases[0].radii
+    rec["checks"] = polar_checks(label, solver, {
+        "u(r=Ri)": (fields["u"], Ri, 0.0), "u(r=Ro)": (fields["u"], Ro, 0.0),
+        "b(r=Ri)-1": (fields["b"], Ri, 1.0), "b(r=Ro)": (fields["b"], Ro, 0.0)},
+        bound=1e-12, constraint=("trace(grad_u)+tau_p", 0))
+    rec["breakdown_ms"] = dense_breakdown(label, solver, dt, 10)
+    rec["iteration"] = solver.iteration
+    del solver, flow
+    return rec
+
+
+def rotconv_phase(size, steps):
+    """rotconv32x16x16: the progression's rotating shell convection,
+    ell-coupled and dense (phase 19)."""
+    import torch
+    from dedalus_tpu_torch.extras.bench_problems import build_rotconv
+    label = "rotconv%dx%dx%d" % size
+    rec = {"cell": label, "size": list(size),
+           "card_vs_cpu_rel": polar_card_vs_cpu(
+               "rotconv%dx%dx%d" % ROTCONV_SMALL,
+               lambda device: build_rotconv(*ROTCONV_SMALL, device=device),
+               5, ROTCONV_DYNAMIC, ROTCONV_ALGEBRAIC_BOUND)}
+    solver, dt = polar_build(
+        rec, lambda: build_rotconv(*size, device="cuda"), 1e-4)
+    rec["coupled_axes"] = sorted(solver.layout.forced_coupled)
+    if rec["coupled_axes"] != [1]:
+        fail(f"{label}: the layout coupled {rec['coupled_axes']}, not ell")
+    for _ in range(2):
+        solver.step(dt)
+    rec["dt"] = dt
+    rec["steps_per_s"] = steps_per_s(solver, dt, steps)
+    rec["max_memory_allocated_GB"] = torch.cuda.max_memory_allocated() / 1e9
+    rec["factorizations"] = solver.timestepper.factorizations
+    rec["floored_pivots"] = floored_pivot_counts(solver)
+    if not bool(torch.isfinite(solver.X).all()):
+        fail(f"{label}: non-finite state")
+    rec["breakdown_ms"] = dense_breakdown(label, solver, dt, 5)
+    rec["iteration"] = solver.iteration
+    log(f"{label} " + json.dumps({k: rec[k] for k in (
+        "build_s", "factor_s", "steps_per_s", "pencil_shape",
+        "max_memory_allocated_GB")}))
+    del solver
     return rec
 
 
@@ -2583,6 +2723,42 @@ def main():
     phase_done("18 polar")
 
     # --------------------------------------------------------- phase 19
+    # the spherical shell: the shell_convection example at its size and
+    # the rotating shell at a reduced size, dense (no kernel: each cell's
+    # counts must stay 0)
+    RESULTS["shell"] = {}
+    for cell, run in (
+            ("shell_convection%dx%dx%d" % SHELL_SIZE,
+             lambda: shell_phase(SHELL_SIZE, SHELL_STEPS)),
+            ("rotconv%dx%dx%d" % ROTCONV_SIZE,
+             lambda: rotconv_phase(ROTCONV_SIZE, ROTCONV_STEPS))):
+        RESULTS["shell"][cell] = dense_path(cell, run)
+        release()
+    summary = {cell: {k: rec.get(k) for k in (
+        "pencil_shape", "ops", "build_s", "factor_s", "steps_per_s",
+        "max_memory_allocated_GB", "allocated_before_build_GB",
+        "host_syncs_per_step", "floored_pivots", "card_vs_cpu_rel")}
+        for cell, rec in RESULTS["shell"].items()}
+    for cell, rec in RESULTS["shell"].items():
+        summary[cell]["substitution_launches"] = \
+            RESULTS["dense_path_launches"][cell]
+        sm = rec.get("step_many")
+        if sm is not None:
+            summary[cell].update({
+                "loop_steps_per_s": sm["loop_steps_per_s"],
+                "block_steps_per_s": sm["block_steps_per_s"],
+                "replay_bit_equal": sm["replay_bit_equal"],
+                "host_syncs_per_block": sm["host_syncs_per_block"],
+                "idle_share": [sm["profile_loop"]["idle_share"],
+                               sm["profile_block"]["idle_share"]],
+                "kernels_per_step": [
+                    sm["profile_loop"]["kernels_per_step"],
+                    sm["profile_block"]["kernels_per_step"]]})
+    summary["card"] = card
+    log("shell " + json.dumps(summary))
+    phase_done("19 shell")
+
+    # --------------------------------------------------------- phase 20
     # times and bound at each kernel's main path shapes (the solve's
     # kernel at rb3d_128's own factor operators, q = 80, f64; the
     # transposed solve's at the rb2048x1024 shapes, the gradients' main
@@ -2703,7 +2879,7 @@ def main():
         if not any(entry["launches_by_path"].values()):
             fail(f"{entry['name']} was launched on no path of this run")
     RESULTS["kernels"] = kernels["kernels"]
-    phase_done("19 kernels line")
+    phase_done("20 kernels line")
     log(json.dumps(kernels))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -1,16 +1,20 @@
 """
 Arithmetic expression nodes (counterpart of dedalus_tpu/core/arithmetic.py:
-the Cartesian products and the angularly constant polar NCCs): Add,
-ScalarMultiply, MultiplyFields, DotProduct, Power.
+the Cartesian products, the angularly constant polar NCCs, and the
+spherical NCCs of the shell and the sphere): Add, ScalarMultiply,
+MultiplyFields, DotProduct, CrossProduct, Power.
 
 Grid-space products are pointwise torch ops; LHS products with a
 non-constant-coefficient (NCC) factor assemble multiplication matrices by
 quadrature (tools.jacobi.multiplication_matrix; the annulus's
-radial_multiplication_matrix; the disk's per-(m, spin) Zernike stacks); a
-constant NCC factor (e.g. the unit vector in `b*ez`) becomes a
-tensor-placement factor times a scalar. NCCs that vary with the azimuth of
-a disk or annulus couple the m groups and are not carried yet: they raise
-NotImplementedError.
+radial_multiplication_matrix; the disk's per-(m, spin) Zernike stacks; the
+shell's per-(ell, regularity) radial matrices for radial profiles and
+SWSH triple-product couplings for colatitude-varying ones); a constant
+NCC factor (e.g. the unit vector in `b*ez`) becomes a tensor-placement
+factor times a scalar. NCCs that vary with the azimuth of a disk or
+annulus couple the m groups and are not carried yet: they raise
+NotImplementedError. The ball's NCCs wait for the ball (ROADMAP queue 1
+item 3).
 """
 
 import numpy as np
@@ -218,6 +222,55 @@ def Multiply(a, b):
     return MultiplyFields(a, b)
 
 
+def _filter_rel(mat, rel):
+    """Drop entries of a sparse matrix below rel * max|entry|, REAL and
+    IMAGINARY parts independently: source-precision residue often rides
+    as a tiny real part on a large purely-imaginary coupling (or vice
+    versa), and the azimuthal pair representation would otherwise spread
+    it into spurious cross-pair couplings. (sparsify() passes sparse
+    inputs through untouched, so totals need this explicit filter.)"""
+    mat = mat.tocoo()
+    if mat.nnz == 0:
+        return mat.tocsr()
+    cut = rel * np.abs(mat.data).max()
+    if np.iscomplexobj(mat.data):
+        re = np.where(np.abs(mat.data.real) >= cut, mat.data.real, 0.0)
+        im = np.where(np.abs(mat.data.imag) >= cut, mat.data.imag, 0.0)
+        data = re + 1j * im
+    else:
+        data = np.where(np.abs(mat.data) >= cut, mat.data, 0.0)
+    keep = data != 0
+    return sp.csr_matrix((data[keep], (mat.row[keep], mat.col[keep])),
+                         shape=mat.shape)
+
+
+def _interleave_gs(M, nout, nin, gs, X):
+    """
+    Lift a matrix over (component x X) index spaces to (component x gs x X)
+    on the gs (azimuthal cos/sin pair) axis, matching the slot ordering
+    component-major > pair > coupled axes. A real matrix acts identically
+    on both pair slots (kron with I2); a complex matrix acts through its
+    real 2x2 pair representation Re (x) I2 + Im (x) J — the same
+    convention the transforms use for the spin recombination
+    (curvilinear.real_pair_matrix).
+    """
+    if np.iscomplexobj(M.data if sp.issparse(M) else M):
+        Mr = M.real
+        Mi = M.imag
+        K = (sp.kron(Mr, sp.identity(gs), format="csr")
+             + sp.kron(Mi, sp.csr_matrix(PAIR_J), format="csr"))
+    else:
+        K = sp.kron(M, sp.identity(gs), format="csr")  # ordering (comp, X, j)
+
+    def perm(ncomp):
+        comp = np.repeat(np.arange(ncomp), gs * X)
+        j = np.tile(np.repeat(np.arange(gs), X), ncomp)
+        x = np.tile(np.arange(X), ncomp * gs)
+        return comp * (X * gs) + x * gs + j
+
+    return K[perm(nout)][:, perm(nin)]
+
+
 class ProductBase(Future):
     """Shared NCC machinery for Multiply/Dot: grid-space products that become
     linear matrices when one side has no problem variables."""
@@ -345,6 +398,22 @@ class ProductBase(Future):
         from .polar import DiskBasis, AnnulusBasis
         for b in operand.domain.bases:
             if isinstance(b, (DiskBasis, AnnulusBasis)):
+                return b
+        return None
+
+    def _spherical_regularity_basis(self, operand):
+        """The shell basis of `operand` (regularity components), or
+        None."""
+        for b in operand.domain.bases:
+            if b is not None and getattr(b, "regularity", False):
+                return b
+        return None
+
+    def _s2_basis(self, operand):
+        """The sphere basis of `operand`, or None."""
+        from .sphere import SphereBasis
+        for b in operand.domain.bases:
+            if isinstance(b, SphereBasis):
                 return b
         return None
 
@@ -514,6 +583,172 @@ class ProductBase(Future):
             total = mat if total is None else total + mat
         return total
 
+    # ---------------------------------------------- bilinear component maps
+
+    def _coord_bilinear_map(self, ncc, operand, ncc_index):
+        """
+        T_coord (ncomp_out, ncomp_ncc, ncomp_operand): the product's
+        bilinear map over flattened COORDINATE tensor components,
+        out_c = sum_{a,b} T[c, a, b] ncc_a operand_b. Defined per product
+        class (outer product, contraction, Levi-Civita)."""
+        raise NotImplementedError
+
+    def _spin_bilinear_map(self, ncc, operand, ncc_index):
+        """
+        T_spin: the same bilinear map conjugated into SPIN components by the
+        unitary coordinate->spin recombinations U (out = U_out T_coord
+        (U_ncc^H x U_op^H)). Pointwise products conserve total spin, so
+        T_spin[c, a, b] != 0 only when s_out[c] = s_ncc[a] + s_op[b]
+        (asserted numerically; used as the selection rule downstream).
+        """
+        from .curvilinear import recombination_matrix
+        T = np.asarray(self._coord_bilinear_map(ncc, operand, ncc_index),
+                       dtype=complex)
+        U_n = recombination_matrix(tuple(ncc.tensorsig), self._sph_cs(operand))
+        U_o = recombination_matrix(tuple(operand.tensorsig),
+                                   self._sph_cs(operand))
+        U_out = recombination_matrix(tuple(self.tensorsig),
+                                     self._sph_cs(operand))
+        T_spin = np.einsum("cC,Cab,Aa,Bb->cAB", U_out, T,
+                           np.conj(U_n), np.conj(U_o))
+        T_spin[np.abs(T_spin) < 1e-13] = 0.0
+        return T_spin
+
+    def _sph_cs(self, operand):
+        basis = self._spherical_regularity_basis(operand)
+        if basis is None:
+            basis = self._s2_basis(operand)
+        return basis.cs
+
+    def _sph_ncc_setup(self, ncc, operand, ncc_index):
+        """
+        Validate a radially-directed, angularly-constant spherical NCC and
+        return its assembly context (operand basis, NCC basis, radial
+        profile coefficients, ranks, per-sweep cache).
+        """
+        from .spherical3d import spherical_rank
+        basis = self._spherical_regularity_basis(operand)
+        ncc_basis = self._spherical_regularity_basis(ncc)
+        if basis is None or ncc_basis is None:
+            raise NonlinearOperatorError(
+                "Curvilinear NCCs require shell bases on both factors.")
+        rank_n = spherical_rank(ncc.tensorsig, basis.cs)
+        rank_in = spherical_rank(operand.tensorsig, basis.cs)
+        ncomp_n = 3 ** rank_n
+        radial_flat = ncomp_n - 1  # flat index of (2, ..., 2)
+        # Cache radial multiplication stacks across groups of ONE assembly
+        # sweep, invalidated when any field feeding the NCC changes (NLBVP
+        # Jacobian rebuilds re-evaluate the NCC around the moving state;
+        # a stale cache froze the Newton iteration's Jacobian).
+        ncc_src = self.args[ncc_index]
+        if isinstance(ncc_src, Field):
+            version = ((id(ncc_src), ncc_src._version),)
+        else:
+            version = tuple(sorted((id(a), a._version)
+                                   for a in ncc_src.atoms(Field)))
+        cache = getattr(self, "_sph_ncc_cache", None)
+        if cache is not None and cache.get("version") != version:
+            cache = None
+        if cache is None:
+            # Validate: only the all-radial component, angularly constant.
+            grid = np.asarray(ncc["g"])
+            flat = grid.reshape((ncomp_n,) + grid.shape[rank_n:])
+            tol = self._ncc_data_cutoff(flat) * max(np.abs(flat).max(),
+                                                    1e-300)
+            for c in range(ncomp_n):
+                if c != radial_flat and np.abs(flat[c]).max() > tol:
+                    raise NonlinearOperatorError(
+                        "LHS tensor NCCs on spherical bases must have only "
+                        "radial components (e.g. f(r)*er).")
+            profile = flat[radial_flat]
+            if np.abs(profile - profile[:1, :1, :]).max() > tol:
+                raise NonlinearOperatorError(
+                    "LHS NCCs on spherical bases must be angularly constant.")
+            profile_coeffs = ncc_basis.scalar_radial_coeffs(profile[0, 0],
+                                                            l_env=rank_n)
+            cache = self._sph_ncc_cache = {"coeffs": profile_coeffs,
+                                           "version": version}
+        return {"basis": basis, "ncc_basis": ncc_basis, "cache": cache,
+                "sparsify_cutoff":
+                    self._ncc_sparsify_cutoff(np.dtype(ncc.dtype)),
+                "rank_n": rank_n, "rank_in": rank_in,
+                "rank_out": spherical_rank(self.tensorsig, basis.cs),
+                "T_spin": self._spin_bilinear_map(ncc, operand, ncc_index),
+                "radial_flat": radial_flat, "ncc_index": ncc_index}
+
+    def _sph_ncc_pairs(self, setup, ell):
+        """
+        [(i, j, C_ij, M_ij)] for one ell: the Q-intertwined component
+        coupling C = Q_out^T P Q_in (P = the product's spin bilinear map
+        contracted against the radial NCC slot, so Multiply/Dot/Cross all
+        route through here) and per-(ell, regularity) radial multiplication
+        matrices.
+        """
+        from .spherical3d import q_stack, reg_totals
+        basis = setup["basis"]
+        cache = setup["cache"]
+        rank_n, rank_in = setup["rank_n"], setup["rank_in"]
+        rank_out = setup["rank_out"]
+        ncomp_in = 3 ** rank_in
+        P = setup["T_spin"][:, setup["radial_flat"], :]
+        if np.abs(P.imag).max() < 1e-13:
+            P = P.real
+        totals_in = reg_totals(rank_in)
+        totals_out = reg_totals(rank_out)
+        Q_in = q_stack(basis.Ntheta, rank_in)[ell]
+        Q_out = q_stack(basis.Ntheta, rank_out)[ell]
+        C = Q_out.T @ P @ Q_in
+        out = []
+        for i in range(3 ** rank_out):
+            for j in range(ncomp_in):
+                if abs(C[i, j]) < 1e-12:
+                    continue
+                key = (int(totals_in[j]), int(totals_out[i]), int(ell))
+                M = cache.get(key)
+                if M is None:
+                    M = sparsify(basis.ncc_radial_matrix(
+                        cache["coeffs"], setup["ncc_basis"].k, totals_in[j],
+                        totals_out[i], ell, k_out=0, l_env=rank_n),
+                        setup["sparsify_cutoff"])
+                    cache[key] = M
+                out.append((i, j, C[i, j], M))
+        return out
+
+    def _spherical_ncc_matrix(self, subproblem, ncc, operand, ncc_index):
+        """
+        Pencil matrix for multiplication by a radially-directed,
+        angularly-constant NCC (f(r), f(r)*er, f(r)*er*er, ...) over the
+        shell basis: per-(m, ell) group, the Q-intertwined component
+        coupling kron'd with per-(ell, regularity) radial multiplication
+        matrices (dedalus_tpu/core/arithmetic.py:1027; reference:
+        core/arithmetic.py:559 Gamma machinery, restricted to the
+        radial-NCC case the shell examples use). On an ell-coupled layout
+        it assembles through _sph_coupled_ncc_matrix.
+        """
+        layout = subproblem.layout
+        pre_basis = self._spherical_regularity_basis(operand)
+        colat_axis = pre_basis.first_axis + 1
+        if subproblem.group[colat_axis] is None:
+            # layout-coupled colatitude (theta-dependent NCC somewhere in
+            # the problem): ell-coupled assembly
+            return self._sph_coupled_ncc_matrix(subproblem, ncc, operand,
+                                                ncc_index)
+        setup = self._sph_ncc_setup(ncc, operand, ncc_index)
+        basis = setup["basis"]
+        az_axis = basis.first_axis
+        ell = subproblem.group[colat_axis]
+        ncomp_in = 3 ** setup["rank_in"]
+        rank_out = setup["rank_out"]
+        gs = layout.sep_widths[az_axis]
+        I_gs = sp.identity(gs, format="csr")
+        Nr = basis.Nr
+        total = sp.csr_matrix((3 ** rank_out * gs * Nr, ncomp_in * gs * Nr))
+        for i, j, Cij, M in self._sph_ncc_pairs(setup, ell):
+            sel = sp.csr_matrix(
+                (np.ones(1), ([i], [j])), shape=(3 ** rank_out, ncomp_in))
+            total = total + Cij * sparse_kron(sel, I_gs, M)
+        return total
+
     NCC_ANGULAR_CUTOFF = 1e-10
 
     @staticmethod
@@ -561,6 +796,311 @@ class ProductBase(Future):
         tol = (ProductBase._ncc_data_cutoff(grid)
                * max(np.abs(grid).max(), 1e-300))
         return bool(np.abs(moved - moved[:1]).max() > tol)
+
+    @staticmethod
+    def sph_ncc_angular_profile(ncc, basis, cs):
+        """
+        Classify a spherical NCC's angular structure from its grid data.
+        Returns (spin_profiles, tol): spin_profiles[a] = (Ntheta, Nr) theta-
+        radial data of flattened SPIN component a (axisymmetry along phi is
+        validated here), tol the absolute significance cutoff. Used both by
+        the layout coupling detection (subsystems._ncc_forced_coupled_axes)
+        and the coupled assembly.
+        """
+        from .curvilinear import recombination_matrix
+        rank_n = len(ncc.tensorsig)
+        ncomp = int(np.prod(ncc.tshape, dtype=int)) if ncc.tshape else 1
+        ncc.change_scales(1)
+        grid = np.asarray(ncc["g"])
+        flat = grid.reshape((ncomp,) + grid.shape[rank_n:])
+        if flat.ndim == 3:  # standalone S2: insert a trivial radial axis
+            flat = flat[..., None]
+        tol = ProductBase._ncc_data_cutoff(flat) * max(np.abs(flat).max(),
+                                                       1e-300)
+        if np.abs(flat - flat[:, :1]).max() > tol:
+            raise NonlinearOperatorError(
+                "LHS NCCs on spherical bases must be axisymmetric (constant "
+                "along phi); only theta/radial variation is supported.")
+        prof = flat[:, 0]                       # (ncomp, Ntheta, Nr)
+        U = recombination_matrix(tuple(ncc.tensorsig), cs)
+        spin_prof = np.einsum("ac,ctr->atr", U, prof.astype(complex))
+        return spin_prof, tol
+
+    def _sph_ncc_general_data(self, ncc, operand, basis, ncc_basis,
+                              ncc_index):
+        """
+        Expansion of a theta/radius-dependent axisymmetric NCC for the
+        ell-coupled assembly: per flattened spin component a, the list of
+        (L, B_L) with B_L the radial multiplication matrix (operand level-k
+        -> level-0) of the NCC's Y_{L,(0,s_a)} angular mode's radial
+        profile (reference: the theta-dependent Clenshaw NCC pipeline,
+        dedalus/core/arithmetic.py:359-406 + basis.py:611-628, rebuilt
+        by SWSH + Gauss quadrature).
+        """
+        from ..libraries import sphere as swsh
+        ncc_src = self.args[ncc_index]
+        if isinstance(ncc_src, Field):
+            version = ((id(ncc_src), ncc_src._version),)
+        else:
+            version = tuple(sorted((id(a), a._version)
+                                   for a in ncc_src.atoms(Field)))
+        version = version + (("k", getattr(basis, "k", 0)),)
+        cache = getattr(self, "_sph_gen_cache", None)
+        if cache is not None and cache.get("version") == version:
+            return cache
+        from .spherical3d import ShellBasis, BALL_PENDING
+        if not isinstance(basis, ShellBasis):
+            raise NotImplementedError(BALL_PENDING)
+        spin_prof, tol = self.sph_ncc_angular_profile(ncc, basis, basis.cs)
+        spins = component_spins(ncc.tensorsig, basis.cs)
+        Lmax_n = ncc_basis.Lmax
+        Ntheta_n = spin_prof.shape[1]
+        terms = {}
+        for a in range(spin_prof.shape[0]):
+            pa = spin_prof[a]
+            if np.abs(pa).max() <= tol:
+                continue
+            s_a = int(spins[a])
+            F = swsh.forward_matrix(Lmax_n, 0, s_a, Ng=Ntheta_n) @ pa
+            l0 = swsh.lmin(0, s_a)
+            rows = []
+            for i in range(F.shape[0]):
+                if np.abs(F[i]).max() <= tol:
+                    continue
+                L = l0 + i
+                coeffs = F[i]
+                if np.abs(coeffs.imag).max() < 1e-13 * max(
+                        np.abs(coeffs).max(), 1e-300):
+                    coeffs = coeffs.real
+                # the shell's radial space is ell-independent: one
+                # multiplication matrix per (a, L)
+                B = sparsify(basis.radial_multiplication_matrix(
+                    ncc_basis.scalar_radial_coeffs(coeffs),
+                    ncc_basis.k, k_out=0),
+                    self._ncc_sparsify_cutoff(np.dtype(ncc.dtype)))
+                rows.append((L, B))
+            if rows:
+                terms[a] = rows
+        cache = self._sph_gen_cache = {"version": version, "terms": terms,
+                                       "spins": spins}
+        return cache
+
+    def _sph_coupled_ncc_matrix(self, subproblem, ncc, operand, ncc_index):
+        """
+        Pencil matrix of this product at one azimuthal group of an
+        ell-COUPLED layout: the NCC may vary along theta and radius
+        (e.g. the ez Coriolis vector of rotating convection). Assembly:
+        SWSH triple-product coupling matrices W_L[l', l] (quadrature-exact
+        Gaunt couplings) kron radial multiplication matrices B_L, summed
+        over the NCC's (spin component, L) modes and sandwiched between
+        the per-ell regularity<->spin intertwiners Q
+        (reference: dedalus/core/arithmetic.py:359-406 prep_nccs /
+        build_ncc_matrices with Clenshaw, core/basis.py:611-628).
+        """
+        from .spherical3d import (q_stack, spherical_rank, ShellBasis,
+                                  BALL_PENDING)
+        from ..libraries import sphere as swsh
+        basis = self._spherical_regularity_basis(operand)
+        ncc_basis = self._spherical_regularity_basis(ncc)
+        if basis is None or ncc_basis is None:
+            raise NonlinearOperatorError(
+                "Curvilinear NCCs require shell bases on both factors.")
+        if not isinstance(basis, ShellBasis):
+            raise NotImplementedError(BALL_PENDING)
+        layout = subproblem.layout
+        az = basis.first_axis
+        gs = layout.sep_widths[az]
+        ms = basis.group_m()
+        g = subproblem.group[az]
+        m = int(ms[g])
+        Lmax = basis.Lmax
+        Ntheta, Nr = basis.Ntheta, basis.Nr
+        rank_in = spherical_rank(operand.tensorsig, basis.cs)
+        rank_out = spherical_rank(self.tensorsig, basis.cs)
+        nin, nout = 3 ** rank_in, 3 ** rank_out
+        shape = (nout * gs * Ntheta * Nr, nin * gs * Ntheta * Nr)
+        if basis.complex and g == basis.Nphi // 2:
+            return sp.csr_matrix(shape)  # Nyquist: all slots invalid
+        T_spin = self._spin_bilinear_map(ncc, operand, ncc_index)
+        data = self._sph_ncc_general_data(ncc, operand, basis, ncc_basis,
+                                          ncc_index)
+        s_in = component_spins(operand.tensorsig, basis.cs)
+        s_out = component_spins(self.tensorsig, basis.cs)
+        s_ncc = data["spins"]
+        Qi = q_stack(Ntheta, rank_in)     # (Ntheta, nin, nin) spin x reg
+        Qo = q_stack(Ntheta, rank_out)
+        I_r = sp.identity(Nr, format="csr")
+
+        def embed_W(W, sc, sb):
+            """Place the (l'-slot, l-slot) W into full (Ntheta, Ntheta)."""
+            out = np.zeros((Ntheta, Ntheta))
+            r0 = swsh.lmin(m, sc)
+            c0 = swsh.lmin(m, sb)
+            out[r0:r0 + W.shape[0], c0:c0 + W.shape[1]] = W
+            return out
+
+        total = sp.csr_matrix((nout * Ntheta * Nr, nin * Ntheta * Nr),
+                              dtype=complex)
+        # Q sandwiches are m-independent: cache across the group sweep
+        # (the per-m cost is then only the W couplings, which are
+        # themselves cached by (m, spins, L))
+        qcache = data.setdefault("q_sandwich", {})
+        key_R = ("R", rank_out, Ntheta, Nr)
+        key_C = ("C", rank_in, Ntheta, Nr)
+        if key_R not in qcache:
+            qcache[key_R] = [sp.vstack([
+                sparse_kron(sp.diags(Qo[:, c, gam]), I_r)
+                for gam in range(nout)], format="csr")
+                for c in range(nout)]
+        if key_C not in qcache:
+            qcache[key_C] = [sp.hstack([
+                sparse_kron(sp.diags(Qi[:, b, bet]), I_r)
+                for bet in range(nin)], format="csr")
+                for b in range(nin)]
+        R_all = qcache[key_R]
+        C_all = qcache[key_C]
+        for c in range(nout):
+            sc = int(s_out[c])
+            R_c = R_all[c]
+            for b in range(nin):
+                sb = int(s_in[b])
+                A_cb = None
+                for a, rows in data["terms"].items():
+                    t = T_spin[c, a, b]
+                    if abs(t) < 1e-13:
+                        continue
+                    if sc != int(s_ncc[a]) + sb:
+                        raise ValueError(
+                            "Spin balance violated in NCC assembly "
+                            f"(s_out={sc}, s_ncc={int(s_ncc[a])}, s_in={sb}).")
+                    for L, B in rows:
+                        W = swsh.triple_product_matrix(
+                            Lmax, m, sc, int(s_ncc[a]), sb, L)
+                        if W.size == 0 or np.abs(W).max() == 0.0:
+                            continue
+                        Wl = sparsify(embed_W(W, sc, sb), 1e-14)
+                        term = t * sparse_kron(Wl, B)
+                        A_cb = term if A_cb is None else A_cb + term
+                if A_cb is None:
+                    continue
+                C_b = C_all[b]
+                total = total + R_c @ A_cb @ C_b
+        # Canonicalize BEFORE any derived views: .imag/.real of a
+        # non-canonical CSR share index arrays with the parent, and
+        # canonicalizing the view in place corrupts the parent
+        # (scipy _with_data aliasing).
+        total = total.tocoo().tocsr()
+        # imaginary parts at the SOURCE dtype's roundoff are residue, not
+        # couplings (f32 data leaves ~1e-7-relative imag junk whose pair-J
+        # representation would litter the band structure)
+        imag_tol = max(1e-13, 100 * self._ncc_real_eps(np.dtype(ncc.dtype)))
+        total = _filter_rel(total, self._ncc_sparsify_cutoff(np.dtype(ncc.dtype)))
+        if total.nnz and np.abs(total.imag).max() < imag_tol * max(
+                np.abs(total).max(), 1e-300):
+            total = total.real
+        elif not is_complex_dtype(self.dtype) and gs < 2:
+            raise NonlinearOperatorError(
+                "This NCC product assembles complex couplings (e.g. a cross "
+                "product) with no azimuthal pair slots to carry them; use a "
+                "complex dtype, or move the term to the RHS.")
+        if gs > 1:
+            # slot layout is (component, azimuthal pair, ell, n): interleave
+            # between the component and ell kron positions (complex
+            # couplings act through the real 2x2 pair representation)
+            total = _interleave_gs(total, nout, nin, gs, Ntheta * Nr)
+        return sp.csr_matrix(total)
+
+    def _s2_coupled_ncc_matrix(self, subproblem, ncc, operand, ncc_index):
+        """
+        Pencil matrix of a product with an axisymmetric NCC on the
+        standalone 2D SPHERE (e.g. a zonal background U(theta) in a
+        linearized shallow-water problem): the surface analogue of the
+        shell's coupled path — SWSH triple-product couplings with scalar
+        (L-mode) coefficients, no radial factor. Sphere coefficients are
+        already spin components, so no Q intertwiner sandwich is needed
+        (reference: dedalus/core/arithmetic.py:359-406 restricted to S2).
+        """
+        from ..libraries import sphere as swsh
+        basis = self._s2_basis(operand)
+        ncc_basis = self._s2_basis(ncc)
+        if basis is None or ncc_basis is None:
+            raise NonlinearOperatorError(
+                "S2 NCC products require sphere bases on both factors.")
+        layout = subproblem.layout
+        az = basis.first_axis
+        colat = az + 1
+        if subproblem.group[colat] is not None:
+            raise NonlinearOperatorError(
+                "S2 NCC products require the colatitude coupled "
+                "(standalone sphere problems).")
+        gs = layout.sep_widths[az]
+        ms = basis.group_m()
+        g = subproblem.group[az]
+        m = int(ms[g])
+        Lmax = basis.Lmax
+        Ntheta = basis.Ntheta
+        nin = int(np.prod(operand.tshape, dtype=int)) if operand.tshape else 1
+        nout = int(np.prod(self.tshape, dtype=int)) if self.tshape else 1
+        shape = (nout * gs * Ntheta, nin * gs * Ntheta)
+        if basis.complex and g == basis.Nphi // 2:
+            return sp.csr_matrix(shape)  # Nyquist
+        T_spin = self._spin_bilinear_map(ncc, operand, ncc_index)
+        spin_prof, tol = self.sph_ncc_angular_profile(ncc, basis, basis.cs)
+        s_ncc = component_spins(ncc.tensorsig, basis.cs)
+        s_in = component_spins(operand.tensorsig, basis.cs)
+        s_out = component_spins(self.tensorsig, basis.cs)
+        total = sp.csr_matrix((nout * Ntheta, nin * Ntheta), dtype=complex)
+        for a in range(spin_prof.shape[0]):
+            pa = spin_prof[a][:, 0]
+            if np.abs(pa).max() <= tol:
+                continue
+            sa = int(s_ncc[a])
+            F = swsh.forward_matrix(ncc_basis.Lmax, 0, sa) @ pa
+            l0 = swsh.lmin(0, sa)
+            for c in range(nout):
+                sc = int(s_out[c])
+                for b in range(nin):
+                    t = T_spin[c, a, b]
+                    if abs(t) < 1e-13:
+                        continue
+                    sb = int(s_in[b])
+                    if sc != sa + sb:
+                        raise ValueError(
+                            "Spin balance violated in S2 NCC assembly.")
+                    blk = None
+                    for i in range(F.shape[0]):
+                        if abs(F[i]) <= tol:
+                            continue
+                        L = l0 + i
+                        W = swsh.triple_product_matrix(Lmax, m, sc, sa,
+                                                       sb, L)
+                        if W.size == 0 or np.abs(W).max() == 0.0:
+                            continue
+                        emb = np.zeros((Ntheta, Ntheta))
+                        r0 = swsh.lmin(m, sc)
+                        c0 = swsh.lmin(m, sb)
+                        emb[r0:r0 + W.shape[0], c0:c0 + W.shape[1]] = W
+                        term = (t * F[i]) * sparsify(emb, 1e-14)
+                        blk = term if blk is None else blk + term
+                    if blk is None:
+                        continue
+                    place = sp.csr_matrix(
+                        (np.ones(1), ([c], [b])), shape=(nout, nin))
+                    total = total + sp.kron(place, blk, format="csr")
+        total = total.tocoo().tocsr()
+        imag_tol = max(1e-13, 100 * self._ncc_real_eps(np.dtype(ncc.dtype)))
+        total = _filter_rel(total, self._ncc_sparsify_cutoff(np.dtype(ncc.dtype)))
+        if total.nnz and np.abs(total.imag).max() < imag_tol * max(
+                np.abs(total).max(), 1e-300):
+            total = total.real
+        elif total.nnz and not is_complex_dtype(self.dtype) and gs < 2:
+            raise NonlinearOperatorError(
+                "This S2 NCC product assembles complex couplings with no "
+                "azimuthal pair slots to carry them; use a complex dtype, "
+                "or move the term to the RHS.")
+        if gs > 1:
+            total = _interleave_gs(total, nout, nin, gs, Ntheta)
+        return sp.csr_matrix(total)
 
     def _assemble_ncc_matrix(self, subproblem, ncc, operand, tensor_factor_fn):
         """
@@ -614,8 +1154,32 @@ class MultiplyFields(ProductBase):
         da_x = da.reshape(da.shape[:ta] + (1,) * tb + da.shape[ta:])
         return da_x * db  # broadcasting over tensor + constant grid axes
 
+    def _coord_bilinear_map(self, ncc, operand, ncc_index):
+        nn = int(np.prod(ncc.tshape, dtype=int)) if ncc.tshape else 1
+        no = int(np.prod(operand.tshape, dtype=int)) if operand.tshape else 1
+        T = np.zeros((nn * no, nn, no))
+        a, b = np.meshgrid(np.arange(nn), np.arange(no), indexing="ij")
+        if ncc_index == 0:
+            T[(a * no + b).ravel(), a.ravel(), b.ravel()] = 1.0
+        else:
+            T[(b * nn + a).ravel(), a.ravel(), b.ravel()] = 1.0
+        return T
+
     def expression_matrices(self, subproblem, vars, **kw):
         ncc_index, ncc, operand = self._split_ncc(vars, subproblem.layout)
+        if self._spherical_regularity_basis(ncc) is not None:
+            M = self._spherical_ncc_matrix(subproblem, ncc, operand,
+                                           ncc_index)
+            op_mats = operand_expression_matrices(operand, subproblem, vars,
+                                                  **kw)
+            return {var: M @ mat for var, mat in op_mats.items()}
+        if (self._s2_basis(ncc) is not None
+                and self._spherical_regularity_basis(operand) is None):
+            M = self._s2_coupled_ncc_matrix(subproblem, ncc, operand,
+                                            ncc_index)
+            op_mats = operand_expression_matrices(operand, subproblem, vars,
+                                                  **kw)
+            return {var: M @ mat for var, mat in op_mats.items()}
         pol = self._polar_spin_basis(ncc)
         if pol is not None and (ncc.tensorsig or not hasattr(
                 pol, "radial_multiplication_matrix")):
@@ -686,6 +1250,31 @@ class DotProduct(ProductBase):
     def __repr__(self):
         return f"({self.args[0]}@{self.args[1]})"
 
+    def _coord_bilinear_map(self, ncc, operand, ncc_index):
+        if ncc_index == 0:
+            lead = ncc.tshape[:-1]
+            rest = operand.tshape[1:]
+            d = ncc.tshape[-1]
+            nl = int(np.prod(lead, dtype=int)) if lead else 1
+            nr_ = int(np.prod(rest, dtype=int)) if rest else 1
+            T = np.zeros((nl * nr_, nl * d, d * nr_))
+            for al in range(nl):
+                for ro in range(nr_):
+                    for j in range(d):
+                        T[al * nr_ + ro, al * d + j, j * nr_ + ro] = 1.0
+        else:
+            lead = operand.tshape[:-1]
+            rest = ncc.tshape[1:]
+            d = ncc.tshape[0]
+            nl = int(np.prod(lead, dtype=int)) if lead else 1
+            nr_ = int(np.prod(rest, dtype=int)) if rest else 1
+            T = np.zeros((nl * nr_, d * nr_, nl * d))
+            for al in range(nl):
+                for ro in range(nr_):
+                    for j in range(d):
+                        T[al * nr_ + ro, j * nr_ + ro, al * d + j] = 1.0
+        return T
+
     @staticmethod
     def contraction_subscripts(ta, tb):
         """einsum subscripts contracting the left factor's LAST tensor
@@ -736,6 +1325,19 @@ class DotProduct(ProductBase):
                 return sparse_kron(sp.identity(n_lead_op, format="csr"),
                                    sp.csr_matrix(row), sp.csr_matrix(col))
 
+        if self._spherical_regularity_basis(ncc) is not None:
+            M = self._spherical_ncc_matrix(subproblem, ncc, operand,
+                                           ncc_index)
+            op_mats = operand_expression_matrices(operand, subproblem, vars,
+                                                  **kw)
+            return {var: M @ mat for var, mat in op_mats.items()}
+        if (self._s2_basis(ncc) is not None
+                and self._spherical_regularity_basis(operand) is None):
+            M = self._s2_coupled_ncc_matrix(subproblem, ncc, operand,
+                                            ncc_index)
+            op_mats = operand_expression_matrices(operand, subproblem, vars,
+                                                  **kw)
+            return {var: M @ mat for var, mat in op_mats.items()}
         pol = self._polar_spin_basis(ncc)
         if pol is not None and not hasattr(pol, "radial_multiplication_matrix"):
             # disk contraction (e.g. pipe flow's u@grad(w0)): the same
@@ -747,6 +1349,73 @@ class DotProduct(ProductBase):
             op_mats = operand_expression_matrices(operand, subproblem, vars,
                                                   **kw)
             return {var: M @ mat for var, mat in op_mats.items()}
+        M = self._assemble_ncc_matrix(subproblem, ncc, operand, tensor_factor)
+        op_mats = operand_expression_matrices(operand, subproblem, vars, **kw)
+        return {var: M @ mat for var, mat in op_mats.items()}
+
+
+class CrossProduct(ProductBase):
+    """3D cross product (dedalus_tpu/core/arithmetic.py:1822; reference:
+    core/arithmetic.py:677)."""
+
+    name = "Cross"
+    natural_layout = "g"
+
+    def __init__(self, a, b):
+        if a.tensorsig[-1].dim != 3 or b.tensorsig[0].dim != 3:
+            raise ValueError("CrossProduct requires 3D vectors.")
+        super().__init__(a, b)
+
+    def _build_metadata(self):
+        a, b = self.args
+        self.tensorsig = tuple(a.tensorsig)
+        self.domain = _product_domain(self.dist, [a, b])
+        self.dtype = _promote_dtype(self.args)
+
+    def ev_impl(self, ctx):
+        a, b = self.args
+        da = ev(a, ctx, "g")
+        db = ev(b, ctx, "g")
+        out = torch.linalg.cross(da, db, dim=0)
+        # Left-handed component orderings (spherical (phi, theta, r)) flip
+        # the orientation (reference: core/coords.py right_handed flags).
+        if not getattr(a.tensorsig[-1], "right_handed", True):
+            out = -out
+        return out
+
+    def _coord_bilinear_map(self, ncc, operand, ncc_index):
+        if len(ncc.tshape) != 1 or len(operand.tshape) != 1:
+            raise NonlinearOperatorError(
+                "LHS cross products support vector x vector only.")
+        eps = np.zeros((3, 3, 3))
+        for i, j, k in ((0, 1, 2), (1, 2, 0), (2, 0, 1)):
+            eps[i, j, k] = 1.0
+            eps[i, k, j] = -1.0
+        if not getattr(self.tensorsig[-1], "right_handed", True):
+            eps = -eps
+        if ncc_index == 0:
+            return eps                       # out_i = eps_ijk ncc_j op_k
+        return np.swapaxes(eps, 1, 2)        # out_i = eps_ijk op_j ncc_k
+
+    def expression_matrices(self, subproblem, vars, **kw):
+        """LHS cross with an NCC factor (e.g. the Coriolis term
+        cross(ez, u) of rotating convection,
+        reference: examples/evp_shell_rotating_convection)."""
+        ncc_index, ncc, operand = self._split_ncc(vars, subproblem.layout)
+        if self._spherical_regularity_basis(ncc) is not None:
+            M = self._spherical_ncc_matrix(subproblem, ncc, operand,
+                                           ncc_index)
+            op_mats = operand_expression_matrices(operand, subproblem, vars,
+                                                  **kw)
+            return {var: M @ mat for var, mat in op_mats.items()}
+        # Cartesian / interval bases: per-axis path with the Levi-Civita
+        # tensor factor selecting each NCC component's action
+        T = self._coord_bilinear_map(ncc, operand, ncc_index)
+
+        def tensor_factor(comp):
+            j = comp[0] if comp else 0
+            return sparsify(sp.csr_matrix(T[:, j, :]), 1e-14)
+
         M = self._assemble_ncc_matrix(subproblem, ncc, operand, tensor_factor)
         op_mats = operand_expression_matrices(operand, subproblem, vars, **kw)
         return {var: M @ mat for var, mat in op_mats.items()}
@@ -794,3 +1463,4 @@ class Power(Future):
 # parseables
 from .operators import parseables  # noqa: E402
 parseables["dot"] = DotProduct
+parseables["cross"] = CrossProduct

@@ -19,7 +19,9 @@ per-group work; materialization then emits one shared COO pattern with a
 (its per-pencil scipy assembly is the direct counterpart of the slow path;
 reference: core/subsystems.py:493-598 build_matrices).
 
-Falls back (BatchUnsupported) for node types without batchable descriptors.
+Falls back (BatchUnsupported) for node types without batchable descriptors
+(the polar tensor and disk NCCs, cross products, and the shell's NCCs on
+an ell-coupled layout).
 
 PARTIAL mode (`partial=True`, with `subproblems`): instead of abandoning
 the whole system when one expression lacks batched terms, only THAT
@@ -233,11 +235,69 @@ def batched_expression_matrices(expr, layout, vars):
     raise BatchUnsupported(f"No batched matrices for {type(expr).__name__}.")
 
 
+def _batched_spherical_ncc(expr, layout, vars, ncc_index, ncc, operand):
+    """
+    The shell's radial NCC products, batched over groups
+    (dedalus_tpu/core/batched_assembly.py:240): the
+    ell-dependent Q-intertwined coupling C_ij(ell) folds into per-ell
+    radial stacks C_ij(ell) * M_ij(ell), leaving one BTerm per active
+    regularity pair with a one-hot tensor factor and a colatitude-indexed
+    "gblocks" radial factor.
+    """
+    basis = expr._spherical_regularity_basis(ncc)
+    az_axis = basis.first_axis
+    colat_axis = az_axis + 1
+    r_axis = az_axis + 2
+    # guard BEFORE the angularly-constant setup: on an ell-coupled layout
+    # (theta-dependent NCC elsewhere in the system) this product assembles
+    # through the per-group whole-axis path, and _sph_ncc_setup's
+    # radial-only validation may legitimately reject it
+    if colat_axis not in layout.sep_n_groups or \
+            az_axis not in layout.sep_widths:
+        raise BatchUnsupported("spherical NCC on a coupled angular axis")
+    setup = expr._sph_ncc_setup(ncc, operand, ncc_index)
+    Nell = layout.sep_n_groups[colat_axis]
+    ncomp_in = 3 ** setup["rank_in"]
+    ncomp_out = 3 ** (setup["rank_n"] + setup["rank_in"])
+    # per-(i, j) stacks over ell
+    stacks = {}
+    for ell in range(Nell):
+        for i, j, Cij, M in expr._sph_ncc_pairs(setup, ell):
+            Md = _dense(M)
+            stack = stacks.get((i, j))
+            if stack is None:
+                stack = stacks[(i, j)] = np.zeros((Nell,) + Md.shape)
+            if Md.shape != stack.shape[1:]:
+                raise BatchUnsupported(
+                    f"Inconsistent radial NCC shapes across ell for pair "
+                    f"({i}, {j}): {Md.shape} vs {stack.shape[1:]}.")
+            stack[ell] = Cij * Md
+    my_terms = []
+    dim = operand.domain.dim
+    for (i, j), stack in stacks.items():
+        tensor = np.zeros((ncomp_out, ncomp_in))
+        tensor[i, j] = 1.0
+        factors = [("I", 1)] * dim
+        factors[az_axis] = ("I", layout.sep_widths[az_axis])
+        factors[colat_axis] = ("I", layout.sep_widths.get(colat_axis, 1))
+        factors[r_axis] = ("B", colat_axis, stack)
+        my_terms.append(BTerm(1.0, tensor, factors))
+    op_terms = batched_expression_matrices(operand, layout, vars)
+    out = {}
+    for var, terms in op_terms.items():
+        out[var] = [mt.matmul(ot) for mt in my_terms for ot in terms]
+    return out
+
+
 def _batched_ncc_matrices(expr, layout, vars):
-    """NCC products (MultiplyFields/DotProduct): group-independent axis
-    matrices batch directly; polar tensor and disk NCCs take the per-group
-    path."""
+    """NCC products (MultiplyFields/DotProduct/CrossProduct):
+    group-independent axis matrices batch directly, the shell's radial
+    NCCs via per-ell stacks; polar tensor and disk NCCs take the
+    per-group path."""
     ncc_index, ncc, operand = expr._split_ncc(vars, layout)
+    if expr._spherical_regularity_basis(ncc) is not None:
+        return _batched_spherical_ncc(expr, layout, vars, ncc_index, ncc,
+                                      operand)
     pol = expr._polar_spin_basis(ncc)
     if pol is not None and (ncc.tensorsig
                             or not hasattr(pol, "radial_multiplication_matrix")):

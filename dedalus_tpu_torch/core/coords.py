@@ -1,6 +1,6 @@
 """
 Coordinate systems (counterpart of dedalus_tpu/core/coords.py: Cartesian
-systems, polar coordinates and the two-sphere). Coordinates are pure
+systems, polar coordinates, the two-sphere and spherical coordinates). Coordinates are pure
 metadata: axis names and ordering, plus, for the curvilinear systems, the
 small unitary intertwiner mapping tensor components to spin components.
 """
@@ -174,3 +174,56 @@ class S2Coordinates(CurvilinearCoordinateSystem):
         Ui = {+1: np.array([+1j, 1]) / np.sqrt(2),
               -1: np.array([-1j, 1]) / np.sqrt(2)}
         return np.array([Ui[spin] for spin in cls.spin_ordering])
+
+
+class SphericalCoordinates(CurvilinearCoordinateSystem):
+    """
+    Spherical coordinates (azimuth, colatitude, radius); spin and
+    regularity ordering (-, +, 0) (dedalus_tpu/core/coords.py:314;
+    reference: core/coords.py:315 SphericalCoordinates). The angular
+    coordinate objects are shared with the embedded S2Coordinates, so
+    sphere bases built on `S2coordsys` see the distributor's axes.
+    """
+
+    spin_ordering = (-1, +1, 0)
+    reg_ordering = (-1, +1, 0)
+    dim = 3
+    right_handed = False
+
+    def __init__(self, azimuth, colatitude, radius):
+        self.names = (azimuth, colatitude, radius)
+        self.S2coordsys = S2Coordinates(azimuth, colatitude)
+        self.azimuth = self.S2coordsys.azimuth
+        self.colatitude = self.S2coordsys.colatitude
+        self.radius = Coordinate(radius, cs=self)
+        self.coords = (self.azimuth, self.colatitude, self.radius)
+        self.dist = None
+
+    def __repr__(self):
+        return f"SphericalCoordinates{self.names}"
+
+    @classmethod
+    def U_forward(cls):
+        """The unitary coordinate -> spin map of one tensor index:
+        u[+-] = (u[theta] +- 1j u[phi]) / sqrt(2), u[0] = u[r], rows in
+        spin order (-, +, 0), columns (phi, theta, r) (reference:
+        core/coords.py:337)."""
+        Ui = {+1: np.array([+1j, 1, 0]) / np.sqrt(2),
+              -1: np.array([-1j, 1, 0]) / np.sqrt(2),
+              0: np.array([0, 0, 1.0])}
+        return np.array([Ui[spin] for spin in cls.spin_ordering])
+
+    @classmethod
+    def U_backward(cls):
+        return cls.U_forward().T.conj()
+
+    @classmethod
+    def Q_backward(cls, ell, order):
+        """The orthogonal regularity -> spin map of `order` indices at
+        harmonic degree ell (reference: core/coords.py:359 _Q_backward)."""
+        from ..libraries.spin_intertwiners import regularity_to_spin
+        return regularity_to_spin(ell, order, cls.reg_ordering)
+
+    @classmethod
+    def Q_forward(cls, ell, order):
+        return cls.Q_backward(ell, order).T

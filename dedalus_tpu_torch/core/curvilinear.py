@@ -30,14 +30,30 @@ from ..tools.array import match_precision
 PAIR_J = np.array([[0.0, -1.0], [1.0, 0.0]])
 
 
+def cs_match(tcs, cs):
+    """Does tensor index `tcs` rotate with the basis system `cs`? Equal
+    systems do, and so do a spherical system and its embedded
+    S2Coordinates, either way round: a sphere basis inside a shell
+    problem stores spherical tensor indices as (-, +, 0) spin components
+    (dedalus_tpu/core/curvilinear.py:45 _cs_match)."""
+    if tcs == cs:
+        return True
+    sub = getattr(tcs, "S2coordsys", None)
+    if sub is not None and sub == cs:
+        return True
+    sup = getattr(cs, "S2coordsys", None)
+    return sup is not None and sup == tcs
+
+
 def component_spins(tensorsig, cs):
     """
     Total spin weight per flattened tensor component, counting only indices
-    whose coordinate system is `cs` (reference: core/basis.py spin_weights).
+    that rotate with `cs` (cs_match; reference: core/basis.py
+    spin_weights).
     """
     spins = np.zeros(1, dtype=int)
     for tcs in tensorsig:
-        if tcs == cs:
+        if cs_match(tcs, cs):
             s = np.array(tcs.spin_ordering)
         else:
             s = np.zeros(tcs.dim, dtype=int)
@@ -48,12 +64,14 @@ def component_spins(tensorsig, cs):
 @functools.lru_cache(maxsize=None)
 def recombination_matrix(tensorsig, cs):
     """The complex unitary coordinate -> spin map (ncomp, ncomp) of a
-    tensor signature: the kron over tensor indices of cs.U_forward()
-    (identity on indices of other systems). Cached, so the device copy is
+    tensor signature: the kron over tensor indices of each matching
+    index's U_forward() (cs_match; identity on indices of other
+    systems). Cached, so the device copy is
     made once."""
     U = np.array([[1.0]])
     for tcs in tensorsig:
-        U = np.kron(U, tcs.U_forward() if tcs == cs else np.eye(tcs.dim))
+        U = np.kron(U, tcs.U_forward() if cs_match(tcs, cs)
+                    else np.eye(tcs.dim))
     return U
 
 

@@ -1,9 +1,11 @@
 """
 Symbolic linear operators (counterpart of dedalus_tpu/core/operators.py:
 the Cartesian operators, the azimuthal interpolation and average of the
-disk and annulus, and the dispatch of grad, div, lap, skew, trace, the
-components, interpolation, lifts and the integrals to the spin operators
-of the disk, annulus and sphere in core/polar.py and core/sphere.py).
+disk and annulus, and the dispatch of grad, div, lap, curl, skew, trace,
+transpose, the components, interpolation, lifts and the integrals to the
+spin operators of the disk, annulus and sphere in core/polar.py and
+core/sphere.py, and to the regularity operators of the shell in
+core/spherical3d.py).
 
 Design: every linear operator is described by a list of **terms**; each term
 is (tensor_factor, [axis_descriptor ...]) with one descriptor per distributor
@@ -32,7 +34,7 @@ from .future import Future, ev
 from .domain import Domain
 from .basis import Jacobi
 from .coords import (CartesianCoordinates, PolarCoordinates, S2Coordinates,
-                     AzimuthalCoordinate)
+                     SphericalCoordinates, AzimuthalCoordinate)
 from .curvilinear import SpinBasisMixin, apply_group_stack, promote_complex
 from ..tools.array import (kron as sparse_kron, sparsify, apply_matrix_torch,
                             match_precision)
@@ -92,9 +94,29 @@ def assemble_group_matrix(terms, operand_domain, tshape_in, tshape_out,
             factors = [tensor_identity(tshape_in)]
         else:
             factors = [sparsify(tensor_factor)]
+        # gblocks whose selector axis the LAYOUT coupled (the shell's
+        # radial stacks selected by ell when a colatitude-varying NCC
+        # couples ell): the (selector x this) joint factor is the block
+        # diagonal of the stack in selector-group order, in place of the
+        # selector axis's identity — valid for an adjacent, otherwise
+        # untouched selector axis, where the kron ordering matches
+        # block_diag's (dedalus_tpu/core/operators.py:50-65)
+        joint_consumed = set()
+        for axis, descr in enumerate(axis_descrs):
+            if (descr is not None and descr[0] == "gblocks"
+                    and group[descr[1]] is None):
+                group_axis = descr[1]
+                if group_axis != axis - 1 \
+                        or axis_descrs[group_axis] is not None:
+                    raise NotImplementedError(
+                        "Layout-coupled gblocks selector must be the "
+                        "adjacent untouched axis.")
+                joint_consumed.add(group_axis)
         for axis, descr in enumerate(axis_descrs):
             basis = operand_domain.bases[axis]
             sub = 0 if basis is None else axis - basis.first_axis
+            if axis in joint_consumed:
+                continue  # replaced by the adjacent joint block factor
             if descr is None:
                 factors.append(_axis_identity(basis, sep_widths.get(axis), sub))
                 continue
@@ -124,12 +146,19 @@ def assemble_group_matrix(terms, operand_domain, tshape_in, tshape_out,
                     factors.append(sparsify(descr[1][group[axis]]))
             elif kind == "gblocks":
                 # per-group blocks on a coupled axis, the group read from
-                # a separable axis
+                # a separable axis — or, with the selector axis coupled,
+                # the joint block diagonal over its groups, each group's
+                # block acting alike on that group's slots
                 _, group_axis, stack = descr
                 if group[group_axis] is None:
-                    raise NotImplementedError(
-                        "gblocks selected by a coupled axis.")
-                factors.append(sparsify(stack[group[group_axis]]))
+                    gb = operand_domain.bases[group_axis]
+                    gw = gb.sub_group_shape(group_axis - gb.first_axis)
+                    eye_g = sp.identity(gw, format="csr")
+                    factors.append(sp.block_diag(
+                        [sp.kron(eye_g, sparsify(b), format="csr")
+                         for b in stack], format="csr"))
+                else:
+                    factors.append(sparsify(stack[group[group_axis]]))
             else:
                 raise ValueError(kind)
         mat = sparse_kron(*factors)
@@ -587,6 +616,15 @@ def Interpolate(operand, coord, position):
     basis = operand.domain.get_basis(coord)
     if basis is None:
         return operand
+    if getattr(basis, "regularity", False):
+        if isinstance(coord, AzimuthalCoordinate):
+            return AzimuthalInterpolate(operand, basis, position)
+        if coord != basis.coordsystem.radius:
+            raise NotImplementedError(
+                "Colatitude interpolation is not supported on the shell "
+                "(radial and azimuthal are).")
+        from .spherical3d import SphericalInterpolate
+        return SphericalInterpolate(operand, position)
     if _polar_basis(basis):
         if isinstance(coord, AzimuthalCoordinate):
             return AzimuthalInterpolate(operand, basis, position)
@@ -645,13 +683,14 @@ class IntegrateCartesian(LinearOperator):
 
 def _integrate(operand, coords):
     """(integral, volume) of `operand` over `coords` (None: every axis it
-    has a basis on): a sphere basis integrates over both of its axes at
-    once (a spec naming only one of them is refused), then each interval
-    axis in turn (dedalus_tpu/core/operators.py:707-813)."""
+    has a basis on): a curvilinear basis integrates over all of its axes
+    at once (a spec naming only some of them is refused), then each
+    interval axis in turn (dedalus_tpu/core/operators.py:707-813)."""
     coords = _resolve_coords(operand, coords)
     out, volume = operand, 1.0
     curv = next((b for b in operand.domain.bases
-                 if isinstance(b, SpinBasisMixin)), None)
+                 if isinstance(b, SpinBasisMixin)
+                 or getattr(b, "regularity", False)), None)
     if curv is not None:
         cs_coords = curv.coordsystem.coords
         selected = len(cs_coords) if coords is None \
@@ -661,7 +700,10 @@ def _integrate(operand, coords):
                 f"Partial integration over a single coordinate of {curv!r} "
                 "is not supported; integrate over the full coordinate "
                 "system.")
-        if selected:
+        if selected and getattr(curv, "regularity", False):
+            from .spherical3d import SphericalIntegrate
+            out, volume = SphericalIntegrate(out), curv.volume
+        elif selected:
             from .polar import PolarIntegrate
             out, volume = PolarIntegrate(out), curv.volume
     if coords is None:
@@ -800,9 +842,13 @@ class Lift(LinearOperator):
 
 
 def LiftFactory(operand, basis, n):
-    """Lift into `basis` via mode `n`: the polar lift on a disk or annulus
+    """Lift into `basis` via mode `n`: the spherical lift on a shell
+    (core/spherical3d.SphericalLift), the polar lift on a disk or annulus
     (core/polar.PolarLift), else the Cartesian one
     (dedalus_tpu/core/operators.py:854)."""
+    if getattr(basis, "regularity", False):
+        from .spherical3d import SphericalLift
+        return SphericalLift(operand, basis, n)
     if _polar_basis(basis):
         from .polar import PolarLift
         return PolarLift(operand, basis, n)
@@ -1034,12 +1080,82 @@ class CartesianLaplacian(CartesianVectorOperator):
         self._build_metadata_common(operand, self.cs, tuple(operand.tensorsig))
 
 
-# grad, div and lap dispatch on the coordinate system: the polar and
-# sphere systems' to the spin-ladder operators of core/polar.py
-# (dedalus_tpu/core/operators.py:1170-1227)
+class CartesianCurl(CartesianVectorOperator):
+    """
+    curl for 3D vectors; 2D vectors get the scalar curl
+    (dedalus_tpu/core/operators.py:1090; reference: core/operators.py:3637
+    Curl).
+    """
+
+    name = "Curl"
+
+    def __init__(self, operand):
+        self.cs = operand.tensorsig[0]
+        super().__init__(operand)
+
+    def rebuild(self, new_args):
+        return CartesianCurl(new_args[0])
+
+    def _vector_terms_for(self, operand, cs):
+        dim = cs.dim
+        raw = []
+        if dim == 3:
+            eps = np.zeros((3, 3, 3))
+            for i, j, k in [(0, 1, 2), (1, 2, 0), (2, 0, 1)]:
+                eps[i, j, k] = 1.0
+                eps[i, k, j] = -1.0
+            for j, coord in enumerate(cs.coords):
+                axis = operand.dist.get_axis(coord)
+                basis = operand.domain.bases[axis]
+                if basis is None:
+                    continue
+                tensor_factor = eps[:, j, :]  # (out_i, in_k)
+                descrs = [None] * operand.domain.dim
+                descrs[axis] = _diff_descr(basis)
+                d_levels = {axis: 1} if isinstance(basis, Jacobi) else {}
+                raw.append((tensor_factor, descrs, d_levels))
+        elif dim == 2:
+            # scalar curl: d_x u_y - d_y u_x
+            for coord, sign, k in [(cs.coords[0], 1.0, 1),
+                                   (cs.coords[1], -1.0, 0)]:
+                axis = operand.dist.get_axis(coord)
+                basis = operand.domain.bases[axis]
+                if basis is None:
+                    continue
+                tensor_factor = np.zeros((1, 2))
+                tensor_factor[0, k] = sign
+                descrs = [None] * operand.domain.dim
+                descrs[axis] = _diff_descr(basis)
+                d_levels = {axis: 1} if isinstance(basis, Jacobi) else {}
+                raw.append((tensor_factor, descrs, d_levels))
+        else:
+            raise ValueError("Curl requires 2D or 3D vectors.")
+        return raw
+
+    def _vector_terms(self):
+        return self._vector_terms_for(self.operand, self.cs)
+
+    def _build_metadata(self):
+        operand = self.args[0]
+        cs = self.cs
+        if cs.dim == 3:
+            tensorsig = tuple(operand.tensorsig)
+        else:
+            tensorsig = tuple(operand.tensorsig[1:])
+        self._build_metadata_common(operand, cs, tensorsig)
+
+
+# grad, div, lap and curl dispatch on the coordinate system: the polar
+# and sphere systems' to the spin-ladder operators of core/polar.py, the
+# spherical system's to the regularity operators of core/spherical3d.py
+# (dedalus_tpu/core/operators.py:1170-1245)
 
 def _spin_cs(cs):
     return isinstance(cs, (PolarCoordinates, S2Coordinates))
+
+
+def _spherical_cs(cs):
+    return isinstance(cs, SphericalCoordinates)
 
 
 @parseable("grad", "Gradient")
@@ -1047,6 +1163,9 @@ def Gradient(operand, cs=None):
     if np.isscalar(operand):
         return 0
     cs = cs or operand.dist.coordsystems[0]
+    if _spherical_cs(cs):
+        from .spherical3d import SphericalGradient
+        return SphericalGradient(operand, cs)
     if _spin_cs(cs):
         from .polar import PolarGradient
         return PolarGradient(operand, cs)
@@ -1057,6 +1176,9 @@ def Gradient(operand, cs=None):
 def Divergence(operand, index=0):
     if np.isscalar(operand):
         return 0
+    if _spherical_cs(operand.tensorsig[index]):
+        from .spherical3d import SphericalDivergence
+        return SphericalDivergence(operand, index)
     if _spin_cs(operand.tensorsig[index]):
         from .polar import PolarDivergence
         return PolarDivergence(operand, index)
@@ -1068,10 +1190,23 @@ def Laplacian(operand, cs=None):
     if np.isscalar(operand):
         return 0
     cs2 = cs or operand.dist.coordsystems[0]
+    if _spherical_cs(cs2):
+        from .spherical3d import SphericalLaplacian
+        return SphericalLaplacian(operand, cs2)
     if _spin_cs(cs2):
         from .polar import PolarLaplacian
         return PolarLaplacian(operand, cs2)
     return CartesianLaplacian(operand, cs)
+
+
+@parseable("curl", "Curl")
+def Curl(operand):
+    if np.isscalar(operand):
+        return 0
+    if operand.tensorsig and _spherical_cs(operand.tensorsig[0]):
+        from .spherical3d import SphericalCurl
+        return SphericalCurl(operand)
+    return CartesianCurl(operand)
 
 
 class Skew(LinearOperator):
@@ -1108,16 +1243,36 @@ def SkewFactory(operand):
 
 @parseable("radial")
 def Radial(operand, index=0):
-    """The radial coordinate component of index `index` of a polar tensor
-    (core/polar.PolarComponent; dedalus_tpu/core/operators.py:1349)."""
+    """The radial coordinate component of index `index` of a polar or
+    spherical tensor (core/polar.PolarComponent,
+    core/spherical3d.SphericalComponent;
+    dedalus_tpu/core/operators.py:1347)."""
+    if _spherical_cs(operand.tensorsig[index]):
+        from .spherical3d import SphericalComponent
+        return SphericalComponent(operand, "radial", index)
     from .polar import PolarComponent
     return PolarComponent(operand, "radial", index)
 
 
 @parseable("azimuthal")
 def Azimuthal(operand, index=0):
-    """The azimuthal coordinate component of index `index` of a polar
-    tensor (dedalus_tpu/core/operators.py:1356)."""
+    """The azimuthal coordinate component of index `index` of a polar or
+    spherical tensor (dedalus_tpu/core/operators.py:1355)."""
+    if _spherical_cs(operand.tensorsig[index]):
+        from .spherical3d import SphericalComponent
+        return SphericalComponent(operand, "azimuthal", index)
+    from .polar import PolarComponent
+    return PolarComponent(operand, "azimuthal", index)
+
+
+@parseable("angular")
+def Angular(operand, index=0):
+    """The angular (phi, theta) components of index `index` of a
+    spherical tensor; the azimuthal component of a polar one
+    (dedalus_tpu/core/operators.py:1388)."""
+    if _spherical_cs(operand.tensorsig[index]):
+        from .spherical3d import SphericalComponent
+        return SphericalComponent(operand, "angular", index)
     from .polar import PolarComponent
     return PolarComponent(operand, "azimuthal", index)
 
@@ -1153,19 +1308,122 @@ class TraceOperator(LinearOperator):
 
 @parseable("trace", "Trace")
 def Trace(operand):
-    """Trace factory: the spin metric (-,+) + (+,-) where the contracted
-    polar or sphere indices are stored as spin components (the interiors
-    and the circle edges), else the coordinate delta
+    """Trace factory: the Q-intertwined spin metric on shell interiors
+    (regularity components) and the (-,+) + (+,-) + (0,0) spin metric on
+    their sphere fields, the spin metric (-,+) + (+,-) where the
+    contracted polar or sphere indices are stored as spin components (the
+    interiors and the circle edges), else the coordinate delta
     (dedalus_tpu/core/operators.py:1363)."""
     if np.isscalar(operand):
         return 0
     ts = operand.tensorsig
+    if len(ts) >= 2 and _spherical_cs(ts[0]):
+        from .spherical3d import (SphericalTrace, SphericalSpinTrace,
+                                  spherical_basis_of)
+        if spherical_basis_of(operand) is not None:
+            return SphericalTrace(operand)
+        # sphere (S2) fields store the 3-D spin components: the constant
+        # spin metric contracts them
+        return SphericalSpinTrace(operand)
     if len(ts) >= 2 and _spin_cs(ts[0]):
         from .polar import SpinTrace, S1SpinTransformMixin
         if any(isinstance(b, (SpinBasisMixin, S1SpinTransformMixin))
                for b in operand.domain.bases):
             return SpinTrace(operand)
     return TraceOperator(operand)
+
+
+@parseable("transpose", "TransposeComponents")
+def TransposeComponents(operand, indices=(0, 1)):
+    """Swap two tensor indices (reference: core/operators.py:1849). The
+    shell's regularity components need the per-ell intertwined transpose;
+    everywhere else the coefficient components are a kron over indices
+    and a plain permutation is exact (dedalus_tpu/core/operators.py:1276)."""
+    if any(getattr(b, "regularity", False) for b in operand.domain.bases):
+        from .spherical3d import SphericalTransposeComponents
+        return SphericalTransposeComponents(operand, indices)
+    return CartesianTransposeComponents(operand, indices)
+
+
+class CartesianTransposeComponents(LinearOperator):
+    """Swap two tensor indices: a permutation of the components
+    (dedalus_tpu/core/operators.py:1287; reference:
+    core/operators.py:1849)."""
+
+    name = "TransposeComponents"
+
+    def __init__(self, operand, indices=(0, 1)):
+        self.indices = indices
+        super().__init__(operand)
+
+    def rebuild(self, new_args):
+        return CartesianTransposeComponents(new_args[0], self.indices)
+
+    def _build_metadata(self):
+        operand = self.args[0]
+        i, j = self.indices
+        ts = list(operand.tensorsig)
+        ts[i], ts[j] = ts[j], ts[i]
+        self.domain = operand.domain
+        self.tensorsig = tuple(ts)
+        self.dtype = operand.dtype
+
+    def terms(self):
+        operand = self.operand
+        tshape = operand.tshape
+        n = int(np.prod(tshape, dtype=int))
+        perm = np.arange(n).reshape(tshape)
+        perm = np.swapaxes(perm, *self.indices).ravel()
+        P = np.zeros((n, n))
+        P[np.arange(n), perm] = 1.0
+        return [(P, [None] * operand.domain.dim)]
+
+
+class SphericalEllProduct(LinearOperator):
+    """
+    Multiplication by a function of the spherical-harmonic degree:
+    out(ell) = ell_func(ell) * in(ell), diagonal in ell on sphere and
+    shell bases (dedalus_tpu/core/operators.py:1404; reference:
+    core/operators.py:4119 SphericalEllProduct, e.g. degree-dependent
+    hyperdiffusion).
+    """
+
+    name = "SphericalEllProduct"
+
+    def __init__(self, operand, cs, ell_func):
+        self.cs = cs
+        self.ell_func = ell_func
+        super().__init__(operand)
+
+    def rebuild(self, new_args):
+        return SphericalEllProduct(new_args[0], self.cs, self.ell_func)
+
+    def _build_metadata(self):
+        operand = self.args[0]
+        self.domain = operand.domain
+        self.tensorsig = tuple(operand.tensorsig)
+        self.dtype = operand.dtype
+
+    def _sph_basis(self):
+        from .sphere import SphereBasis
+        for b in self.operand.domain.bases:
+            if b is not None and (isinstance(b, SphereBasis)
+                                  or getattr(b, "regularity", False)):
+                return b
+        raise ValueError("SphericalEllProduct requires a sphere or shell "
+                         "basis.")
+
+    def terms(self):
+        basis = self._sph_basis()
+        colat = basis.first_axis + 1
+        vals = np.array([float(self.ell_func(ell))
+                         for ell in range(basis.Ntheta)])
+        descrs = [None] * self.operand.domain.dim
+        descrs[colat] = ("blocks", vals.reshape(-1, 1, 1))
+        return [(None, descrs)]
+
+
+parseables["SphericalEllProduct"] = SphericalEllProduct
 
 
 # ----------------------------------------------------------------------

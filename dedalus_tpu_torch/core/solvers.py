@@ -272,6 +272,15 @@ class SolverBase:
         return (self.layout.n_groups, S)
 
     @property
+    def floored_pivots(self):
+        """Per-group count of the pivots below the floor in the ops' most
+        recent factorization (matsolvers.count_floored_pivots): a device
+        tensor, None before the first factorization. Nonzero marks a
+        singular pencil; reading it waits on the device, so it is read
+        where the host reads anyway (at build, tools/health)."""
+        return getattr(getattr(self, "ops", None), "floored_pivots", None)
+
+    @property
     def subproblems_by_group(self):
         """Subproblems keyed by their group tuple
         (dedalus_tpu/core/solvers.py:442)."""
@@ -708,6 +717,15 @@ class LinearBoundaryValueSolver(SolverBase):
         self.L_mat = self.ops.to_device(self._matrices["L"],
                                         self.pencil_dtype)
         self._aux = self.ops.factor(self.L_mat)
+        # the build reads the floored-pivot count (a singular pencil)
+        floored = self.floored_pivots
+        if floored is not None:
+            groups = int((floored > 0).sum())
+            if groups:
+                logger.warning(f"{groups} pencil group(s) of L have pivots "
+                               "below the floor (a singular pencil): the "
+                               "solve returns a bounded member of the "
+                               "solution set")
 
     def _install_carried(self):
         """Factor a carried L (tools/carry.py)."""

@@ -19,9 +19,11 @@ core/transforms.py:1252 SWSHColatitudeTransform).
     and is diagonal in l; the spin-weighted Laplacian is diagonal with
     eigenvalues -(l(l+1) - s^2)/r^2.
 
-The port carries real-dtype spheres standalone (a 2-D problem, the
-colatitude coupled); complex-dtype spheres and spheres inside 3-D
-problems are not carried.
+The port carries real-dtype spheres, standalone (a 2-D problem, the
+colatitude coupled) and as the boundary bases of a shell
+(`ell_separable`: every operator of a 3-D spherical problem is diagonal
+in ell, so the colatitude is a group axis there); complex-dtype spheres
+are not carried yet.
 """
 
 import numpy as np
@@ -29,7 +31,7 @@ import numpy as np
 from ..tools.cache import CachedMethod
 from ..libraries import sphere as swsh
 from .basis import Basis
-from .coords import S2Coordinates
+from .coords import S2Coordinates, SphericalCoordinates
 from .curvilinear import SpinBasisMixin, component_spins
 from .polar import S1Basis, PolarSpinOperator
 from ..tools.general import is_complex_dtype
@@ -45,7 +47,9 @@ class SphereBasis(SpinBasisMixin, Basis):
     dim = 2
 
     def __init__(self, coordsystem, shape, dtype=np.float64, radius=1.0,
-                 dealias=(1, 1)):
+                 dealias=(1, 1), ell_separable=False):
+        if isinstance(coordsystem, SphericalCoordinates):
+            coordsystem = coordsystem.S2coordsys
         if not isinstance(coordsystem, S2Coordinates):
             raise ValueError("Sphere coordsys must be S2Coordinates.")
         if is_complex_dtype(dtype):
@@ -53,6 +57,11 @@ class SphereBasis(SpinBasisMixin, Basis):
                 "Complex-dtype spheres are not carried by the port yet.")
         self.coordsystem = self.cs = coordsystem
         self.coord = coordsystem.coords[0]
+        # separability of the colatitude is a property of the problem: a
+        # standalone sphere couples ell (MulCosine), a shell's boundary
+        # sphere sits in an ell-diagonal 3-D problem
+        # (dedalus_tpu/core/sphere.py:49)
+        self.ell_separable = bool(ell_separable)
         self.shape = tuple(shape)
         self.dtype = np.dtype(dtype)
         self.radius = float(radius)
@@ -82,14 +91,17 @@ class SphereBasis(SpinBasisMixin, Basis):
         return int(np.ceil(scale * self.shape[sub_axis]))
 
     def sub_separable(self, sub_axis):
-        # the azimuth splits into m groups; MulCosine couples ell
-        return sub_axis == 0
+        # the azimuth splits into m groups; the colatitude into ell groups
+        # only inside a 3-D spherical problem (MulCosine couples ell)
+        return sub_axis == 0 or self.ell_separable
 
     def sub_group_shape(self, sub_axis):
         return 2 if sub_axis == 0 else 1
 
     def sub_n_groups(self, sub_axis):
-        return self.Nphi // 2 if sub_axis == 0 else 1
+        if sub_axis == 0:
+            return self.Nphi // 2
+        return self.Ntheta if self.ell_separable else 1
 
     @CachedMethod
     def group_m(self):
@@ -123,15 +135,20 @@ class SphereBasis(SpinBasisMixin, Basis):
     # ---------------------------------------------------------- validity
 
     def component_valid_mask(self, tensorsig, group, sep_widths):
-        """(ncomp, 2, Ntheta) at one m group: slot l valid iff
-        l >= lmin(m, s_component) (reference: core/basis.py:2770)."""
+        """(ncomp, 2, Ntheta) at one m group, or (ncomp, 2, 1) at one
+        (m, ell) group when the colatitude is a group axis: slot l valid
+        iff l >= lmin(m, s_component) (reference: core/basis.py:2770)."""
         spins = component_spins(tensorsig, self.cs)
         az_axis = self.first_axis
+        colat_axis = az_axis + 1
         if az_axis not in sep_widths:
             raise NotImplementedError("Sphere azimuth must be a pencil axis.")
         m = self.group_m()[group[az_axis]]
-        ells = np.arange(self.Ntheta)
-        mask = np.ones((len(spins), 2, self.Ntheta), dtype=bool)
+        if colat_axis in sep_widths:
+            ells = np.array([group[colat_axis]])
+        else:
+            ells = np.arange(self.Ntheta)
+        mask = np.ones((len(spins), 2, ells.size), dtype=bool)
         for c, s in enumerate(spins):
             mask[c] &= (ells >= self._lmin(m, s))[None, :]
         if len(tensorsig) <= 1:

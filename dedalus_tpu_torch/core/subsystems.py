@@ -64,6 +64,32 @@ def _ncc_forced_coupled_axes(variables, equations):
                 "_disk_coupled_ncc_matrix). Move the term to the RHS or "
                 "make the NCC angularly constant.")
 
+    def couples_colatitude(ncc_expr, basis):
+        """Does a shell NCC vary with colatitude, or carry non-radial
+        components? Classified from its data by the same function the
+        term assembly calls (ProductBase.sph_ncc_angular_profile), with
+        the validation rules of the angularly constant path
+        (ProductBase._sph_ncc_setup): whatever that path would refuse
+        couples ell instead, and its pencils are per m
+        (dedalus_tpu/core/subsystems.py:51; reference: theta-dependent
+        NCCs make subproblems ell-coupled, core/arithmetic.py:359-406)."""
+        from ..tools.exceptions import NonlinearOperatorError
+        try:
+            ncc = ncc_expr if isinstance(ncc_expr, Field) \
+                else ncc_expr.evaluate()
+            spin_prof, tol = ProductBase.sph_ncc_angular_profile(
+                ncc, basis, basis.cs)
+        except NonlinearOperatorError:
+            raise
+        except Exception:
+            return True  # cannot classify: couple, as the JAX package does
+        radial_flat = spin_prof.shape[0] - 1  # the all-radial (spin 0) slot
+        for c in range(spin_prof.shape[0]):
+            if c != radial_flat and np.abs(spin_prof[c]).max() > tol:
+                return True
+        rad = spin_prof[radial_flat]
+        return bool(np.abs(rad - rad[:1, :]).max() > tol)
+
     def walk(expr):
         if not isinstance(expr, Future):
             return
@@ -75,8 +101,15 @@ def _ncc_forced_coupled_axes(variables, equations):
                     if basis is None:
                         continue
                     if basis.dim != 1:
-                        # two-axis (curvilinear) NCC: angularly constant
-                        # radial profiles keep the per-m pencils
+                        # multi-axis (curvilinear) NCC: angularly constant
+                        # radial profiles keep the per-m (polar) and
+                        # per-(m, ell) (shell) pencils; a colatitude-
+                        # varying shell NCC couples ell
+                        colat = basis.first_axis + 1
+                        if (basis.dim == 3 and axis == colat
+                                and basis.sub_separable(1)
+                                and couples_colatitude(ncc_sides[0], basis)):
+                            forced.add(colat)
                         from .polar import DiskBasis, AnnulusBasis
                         if (isinstance(basis, (DiskBasis, AnnulusBasis))
                                 and axis == basis.first_axis):

@@ -17,8 +17,10 @@ progression's config 5 (benchmarks/progression.py build_rb3d), a
 complex ComplexFourier x ChebyshevT IVP with a quadratic term, and the
 polar examples: centrifugal convection in an annulus
 (examples/centrifugal_convection.py) and the librating disk
-(examples/libration.py). Each builds on `device` (default `cuda`; pass
-"cpu" to run on the host).
+(examples/libration.py); and the shell: Boussinesq convection in a
+spherical shell (examples/shell_convection.py) and the progression's
+rotating shell convection (benchmarks/progression.py build_rotconv_ivp).
+Each builds on `device` (default `cuda`; pass "cpu" to run on the host).
 """
 
 import numpy as np
@@ -595,3 +597,117 @@ def build_disk_libration(Nphi, Nr, dtype=np.float64, device=None):
     flow = d3.GlobalFlowProperty(solver, cadence=10)
     flow.add_property(u @ u, name="u2")
     return solver, 1e-3, flow, t
+
+
+def build_shell_convection(Nphi, Ntheta, Nr, dtype=np.float64, device=None):
+    """
+    Boussinesq convection in a spherical shell: the equations, bases, taus
+    and initial state of examples/shell_convection.py (reference:
+    examples/ivp_shell_convection), first-order tau form, without its
+    file handlers. ShellBasis (Nphi, Ntheta, Nr), radii (14, 15), dealias
+    3/2, SBDF2, Rayleigh 3500, Prandtl 1; the radial NCCs rvec*lift(tau)
+    and b*er keep one pencil per (m, ell). The example's size is
+    96 x 48 x 6 (16 x 8 x 6 with --quick). Returns (solver, dt, flow): the
+    example's timestep 0.05 and its flow property u2 = u@u at cadence 10.
+    """
+    import dedalus_tpu_torch.public as d3
+    Ri, Ro = 14.0, 15.0
+    Rayleigh, Prandtl = 3500, 1
+    dealias, timestep = 3 / 2, 0.05
+    coords = d3.SphericalCoordinates("phi", "theta", "r")
+    dist = d3.Distributor(coords, dtype=dtype, device=device)
+    shell = d3.ShellBasis(coords, shape=(Nphi, Ntheta, Nr), radii=(Ri, Ro),
+                          dealias=dealias, dtype=dtype)
+    sphere = shell.outer_surface
+    p = dist.Field(name="p", bases=shell)
+    b = dist.Field(name="b", bases=shell)
+    u = dist.VectorField(coords, name="u", bases=shell)
+    tau_p = dist.Field(name="tau_p")
+    tau_b1 = dist.Field(name="tau_b1", bases=sphere)
+    tau_b2 = dist.Field(name="tau_b2", bases=sphere)
+    tau_u1 = dist.VectorField(coords, name="tau_u1", bases=sphere)
+    tau_u2 = dist.VectorField(coords, name="tau_u2", bases=sphere)
+    kappa = (Rayleigh * Prandtl) ** (-1 / 2)
+    nu = (Rayleigh / Prandtl) ** (-1 / 2)
+    phi, theta, r = dist.local_grids(shell)
+    er = dist.VectorField(coords, name="er", bases=shell)
+    er["g"][2] = 1.0
+    rvec = dist.VectorField(coords, name="rvec", bases=shell)
+    rvec["g"][2] = np.broadcast_to(np.asarray(r),
+                                   np.asarray(er["g"])[2].shape)
+    lift_basis = shell.derivative_basis(1)
+    lift = lambda A: d3.Lift(A, lift_basis, -1)  # noqa: E731
+    grad_u = d3.grad(u) + rvec * lift(tau_u1)  # first-order reduction
+    grad_b = d3.grad(b) + rvec * lift(tau_b1)
+    problem = d3.IVP([p, b, u, tau_p, tau_b1, tau_b2, tau_u1, tau_u2],
+                     namespace=locals())
+    problem.add_equation("trace(grad_u) + tau_p = 0")
+    problem.add_equation("dt(b) - kappa*div(grad_b) + lift(tau_b2) "
+                         "= - u@grad(b)")
+    problem.add_equation("dt(u) - nu*div(grad_u) + grad(p) - b*er "
+                         "+ lift(tau_u2) = - u@grad(u)")
+    problem.add_equation("b(r=Ri) = 1")
+    problem.add_equation("u(r=Ri) = 0")
+    problem.add_equation("b(r=Ro) = 0")
+    problem.add_equation("u(r=Ro) = 0")
+    problem.add_equation("integ(p) = 0")
+    solver = problem.build_solver(d3.SBDF2)
+    b.fill_random("g", seed=42, distribution="normal", scale=1e-3)
+    b["g"] += (Ri - Ri * Ro / np.asarray(r)) / (Ri - Ro)
+    flow = d3.GlobalFlowProperty(solver, cadence=10)
+    flow.add_property(u @ u, name="u2")
+    return solver, timestep, flow
+
+
+def build_rotconv(Nphi, Ntheta, Nr, dtype=np.float64, device=None):
+    """
+    Rotating Boussinesq convection in a shell (IVP): a copy of the
+    progression's build_rotconv_ivp (benchmarks/progression.py:193;
+    reference formulation: examples/evp_shell_rotating_convection).
+    ShellBasis (Nphi, Ntheta, Nr), radii (0.35, 1), RK222, Ekman 1e-3,
+    Rayleigh 3e5, Prandtl 1. The Coriolis term cross(ez, u) varies in
+    colatitude, so ell is coupled and each pencil is one m. Returns
+    (solver, dt) with dt = 1e-4.
+    """
+    import dedalus_tpu_torch.public as d3
+    Ri, Ro = 0.35, 1.0
+    Ekman, Prandtl, Rayleigh = 1e-3, 1.0, 3e5
+    coords = d3.SphericalCoordinates("phi", "theta", "r")
+    dist = d3.Distributor(coords, dtype=dtype, device=device)
+    shell = d3.ShellBasis(coords, shape=(Nphi, Ntheta, Nr), radii=(Ri, Ro),
+                          dtype=dtype)
+    sphere = shell.outer_surface
+    phi, theta, r = dist.local_grids(shell)
+    u = dist.VectorField(coords, name="u", bases=shell)
+    p = dist.Field(name="p", bases=shell)
+    T = dist.Field(name="T", bases=shell)
+    tau_u1 = dist.VectorField(coords, bases=sphere)
+    tau_u2 = dist.VectorField(coords, bases=sphere)
+    tau_T1 = dist.Field(bases=sphere)
+    tau_T2 = dist.Field(bases=sphere)
+    tau_p = dist.Field()
+    rvec = dist.VectorField(coords, bases=shell.meridional_basis)
+    rvec["g"][2] = np.broadcast_to(r, rvec["g"][2].shape)
+    ez = dist.VectorField(coords, bases=shell.meridional_basis)
+    ez["g"][1] = -np.sin(theta)
+    ez["g"][2] = np.cos(theta)
+    lift_basis = shell.derivative_basis(1)
+    lift = lambda A: d3.Lift(A, lift_basis, -1)  # noqa: E731
+    grad_u = d3.grad(u) + rvec * lift(tau_u1)
+    grad_T = d3.grad(T) + rvec * lift(tau_T1)
+    problem = d3.IVP([p, u, T, tau_u1, tau_u2, tau_T1, tau_T2, tau_p],
+                     namespace=locals())
+    problem.add_equation("trace(grad_u) + tau_p = 0")
+    problem.add_equation("dt(u) + (1/Ekman)*cross(ez, u) + grad(p) "
+                         "- Rayleigh*T*rvec - div(grad_u) + lift(tau_u2) "
+                         "= - u@grad(u)")
+    problem.add_equation("dt(T) - dot(rvec,u)/Prandtl - div(grad_T)/Prandtl "
+                         "+ lift(tau_T2) = - u@grad(T)")
+    problem.add_equation("u(r=0.35) = 0")
+    problem.add_equation("u(r=1.0) = 0")
+    problem.add_equation("T(r=0.35) = 0")
+    problem.add_equation("T(r=1.0) = 0")
+    problem.add_equation("integ(p) = 0")
+    solver = problem.build_solver(d3.RK222)
+    T.fill_random("g", seed=3, scale=1e-4)
+    return solver, 1e-4

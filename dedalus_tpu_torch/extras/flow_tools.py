@@ -1,6 +1,7 @@
 """
 Flow diagnostics and adaptive timestep control (counterpart of
-dedalus_tpu/extras/flow_tools.py: Cartesian and polar geometry).
+dedalus_tpu/extras/flow_tools.py: Cartesian, polar, S2 and spherical
+geometry).
 
 CFL frequencies are computed on the solver's device and reduced to one
 host scalar per velocity; flow properties reduce the numpy arrays their
@@ -52,14 +53,41 @@ def advective_cfl_frequency(u, ug):
     Advective CFL frequency of velocity field `u`, from its grid tensor
     `ug` on the dealias grid (reference: core/basis.py:6086-6215
     *AdvectiveCFL.cfl_spacing): sum_i |u_i| / dx_i with Cartesian
-    spacings, or |u_phi| / dphi + |u_r| / dr on a disk or annulus
-    (components (phi, r)). The spherical and direct-product spacings come
-    with their slices (ROADMAP queue 1).
+    spacings, |u_phi| / dphi + |u_r| / dr on a disk or annulus
+    (components (phi, r)), |u_angular| k / R on the sphere with
+    k = sqrt(Lmax (Lmax + 1)), and on the shell |u_angular| k / r +
+    |u_r| / dr (components (phi, theta, r);
+    dedalus_tpu/extras/flow_tools.py:98-112). The direct-product
+    spacings come with the cylinder.
     """
     from ..core.coords import (CartesianCoordinates, Coordinate,
-                               PolarCoordinates)
+                               PolarCoordinates, S2Coordinates,
+                               SphericalCoordinates)
     cs = u.tensorsig[0]
     dist = u.dist
+    if isinstance(cs, S2Coordinates):
+        basis = u.domain.bases[dist.get_axis(cs.coords[0])]
+        Lmax = basis.Lmax
+        k = np.sqrt(Lmax * (Lmax + 1)) if Lmax > 0 else 0.0
+        return torch.sqrt(ug[0] ** 2 + ug[1] ** 2) * (k / basis.radius)
+    if isinstance(cs, SphericalCoordinates):
+        basis = u.domain.bases[dist.get_axis(cs.coords[2])]
+        if not hasattr(basis, "radii"):
+            from ..core.spherical3d import BALL_PENDING
+            raise NotImplementedError(BALL_PENDING)
+        r_axis = basis.first_axis + 2
+        r = np.ravel(basis.global_grids(basis.dealias)[2])
+        Lmax = basis.shape[1] - 1
+        k = np.sqrt(Lmax * (Lmax + 1)) if Lmax > 0 else 0.0
+        # the angular spacing r / k, the radial one the dealias-rescaled
+        # gradient of the grid
+        total = torch.sqrt(ug[0] ** 2 + ug[1] ** 2)
+        total = total * _device_profile(k / r, r_axis, dist.dim, ug) if k \
+            else total * 0.0
+        dr = basis.dealias[2] * (np.gradient(r) if r.size > 1
+                                 else np.array([np.inf]))
+        return total + ug[2].abs() / _device_profile(dr, r_axis, dist.dim,
+                                                     ug)
     if isinstance(cs, PolarCoordinates):
         basis = u.domain.bases[dist.get_axis(cs.coords[1])]
         if basis is None:
@@ -83,8 +111,7 @@ def advective_cfl_frequency(u, ug):
     if not isinstance(cs, (CartesianCoordinates, Coordinate)):
         raise NotImplementedError(
             f"CFL spacing for {type(cs).__name__}: dedalus_tpu_torch has "
-            "the Cartesian and polar spacings only (the others come with "
-            "ROADMAP queue 1, slice 12)")
+            "the Cartesian, polar, S2 and spherical spacings only")
     total = 0.0
     for i, coord in enumerate(cs.coords):
         axis = dist.get_axis(coord)

@@ -6,6 +6,7 @@ The pencil index G is the leading batch dimension: factorizations and
 solves are batched dense torch.linalg calls on the solver's device.
 
     aux = Solver.factor(matrices)   # (G, S, S) -> factored aux
+    aux, count = Solver.factor_counted(matrices)  # and the floored pivots
     x   = Solver.solve(aux, rhs)    # (G, S) -> (G, S)
     x   = Solver.solve_transpose(aux, rhs)   # A^T x = rhs, same factors
 
@@ -50,7 +51,32 @@ def add_solver(cls):
     return cls
 
 
-def floor_pivots(LU):
+def amax_abs(x, dim):
+    """max |x| over `dim`; for a real x without the |x| copy (an LU
+    store can be GBs)."""
+    if x.is_complex():
+        return x.abs().amax(dim=dim)
+    return torch.maximum(x.amax(dim=dim), x.amin(dim=dim).neg())
+
+
+def pivot_floor(LU, size=None):
+    """The pivot floor size * eps * max|LU| of each group (..., 1), with
+    `size` the system size (default the factor's own)."""
+    eps = torch.finfo(LU.real.dtype if LU.is_complex() else LU.dtype).eps
+    size = LU.shape[-1] if size is None else size
+    return size * eps * amax_abs(LU, (-2, -1))[..., None]
+
+
+def count_floored_pivots(LU, floor=None):
+    """Per-group count (a device tensor, one entry per leading index) of
+    the pivots of packed LU factors below the pivot floor: the pivots
+    floor_pivots raises, the mark of a singular pencil. Computed on the
+    device; nothing waits on it."""
+    floor = pivot_floor(LU) if floor is None else floor
+    return (LU.diagonal(dim1=-2, dim2=-1).abs() < floor).sum(dim=-1)
+
+
+def floor_pivots(LU, floor=None):
     """LU factors with every pivot below S * eps * max|LU| of its group
     raised to that floor (keeping its phase; an exact zero becomes +floor).
     Such a pivot marks a structurally singular pencil (the annulus
@@ -62,16 +88,31 @@ def floor_pivots(LU):
     far above the floor and stay bit for bit as they were. All on the
     device: nothing waits on it."""
     diag = LU.diagonal(dim1=-2, dim2=-1)
-    eps = torch.finfo(LU.real.dtype if LU.is_complex() else LU.dtype).eps
-    floor = LU.shape[-1] * eps * LU.abs().amax(dim=(-2, -1))[..., None]
+    floor = pivot_floor(LU) if floor is None else floor
     phase = torch.sgn(diag)
     phase = torch.where(phase == 0, torch.ones_like(phase), phase)
     new = torch.where(diag.abs() < floor, floor * phase, diag)
     return torch.diagonal_scatter(LU, new, dim1=-2, dim2=-1)
 
 
+class CountsFlooredPivots:
+    """`factor_counted(matrices)` -> (aux, count): the factorization and
+    the per-group count of its pivots below the floor (a device tensor).
+    A solver that factors without an LU of its own (an inverse, a solve
+    per call) counts on a separate LU of the same matrices, leaving its
+    factors and results as they were; BatchedLUFactorized counts on its
+    own factors before it floors them."""
+
+    @classmethod
+    def factor_counted(cls, matrices):
+        with torch.no_grad():
+            LU, _, _ = torch.linalg.lu_factor_ex(matrices.detach())
+            count = count_floored_pivots(LU)
+        return cls.factor(matrices), count
+
+
 @add_solver
-class BatchedLUFactorized:
+class BatchedLUFactorized(CountsFlooredPivots):
     """Batched dense LU with partial pivoting (the default dense solver off
     the TPU), its pivots floored (floor_pivots). The factorization runs
     without its error check, so no factor waits on the device."""
@@ -80,6 +121,13 @@ class BatchedLUFactorized:
     def factor(matrices):
         LU, pivots, _ = torch.linalg.lu_factor_ex(matrices)
         return floor_pivots(LU), pivots
+
+    @staticmethod
+    def factor_counted(matrices):
+        LU, pivots, _ = torch.linalg.lu_factor_ex(matrices)
+        floor = pivot_floor(LU)
+        count = count_floored_pivots(LU, floor)
+        return (floor_pivots(LU, floor), pivots), count
 
     @staticmethod
     def solve(aux, rhs):
@@ -92,7 +140,7 @@ class BatchedLUFactorized:
 
 
 @add_solver
-class BatchedInverse:
+class BatchedInverse(CountsFlooredPivots):
     """Precomputed batched inverse: each solve is one batched
     matrix-vector product (reference SparseInverse/DenseInverse,
     libraries/matsolvers.py:223)."""
@@ -111,7 +159,7 @@ class BatchedInverse:
 
 
 @add_solver
-class BatchedInverseRefined:
+class BatchedInverseRefined(CountsFlooredPivots):
     """
     Mixed-precision dense solver (dedalus_tpu/libraries/matsolvers.py:76):
     the inverse is computed once in the low dtype and each solve is
@@ -202,7 +250,7 @@ def refined_ladder(plan):
 
 
 @add_solver
-class BatchedDenseSolve:
+class BatchedDenseSolve(CountsFlooredPivots):
     """Factor-per-solve (reference ScipyDenseLU analogue); aux = matrices."""
 
     @staticmethod
@@ -219,7 +267,7 @@ class BatchedDenseSolve:
 
 
 @add_solver
-class DummySolver:
+class DummySolver(CountsFlooredPivots):
     """Testing solver returning zeros (reference: libraries/matsolvers.py:32)."""
 
     @staticmethod

@@ -54,7 +54,8 @@ import torch
 from ..core.fusedstep import (WORK_DTYPE, as_columns, banded_substitution,
                               banded_substitution_transpose, resolve_fusion)
 from . import solvecomp
-from .matsolvers import (BatchedInverseRefined, get_solver,
+from .matsolvers import (BatchedInverseRefined, get_solver, pivot_floor,
+                         amax_abs, count_floored_pivots,
                          lu_solve_transpose, refined_ladder,
                          transposed_refinement)
 from ..tools.array import torch_dtype, zeropad
@@ -155,14 +156,26 @@ class DenseOps(AdjointSolveOps):
         """(M @ X, L @ X): the two products, equal to separate calls."""
         return self.matvec(M, X), self.matvec(L, X)
 
+    # per-group count of the pivots below the floor in the most recent
+    # factorization (a device tensor; None before the first): read where
+    # the host reads anyway, never on the step path
+    floored_pivots = None
+
+    def _factor_counted(self, A):
+        counted = getattr(self.solver_cls, "factor_counted", None)
+        if counted is None:
+            return self.solver_cls.factor(A)
+        aux, self.floored_pivots = counted(A)
+        return aux
+
     def factor(self, A):
         """Factor a matrix already on the device (an LBVP's L)."""
-        return self.solver_cls.factor(A)
+        return self._factor_counted(A)
 
     def factor_lincomb(self, a, A, b, B):
         """Factor a*A + b*B. The validity-closure identity sits on the
         last matrix (L), so it stays b*I in the combination."""
-        return self.solver_cls.factor(a * A + b * B)
+        return self._factor_counted(a * A + b * B)
 
     def _solve_impl(self, aux, rhs, mats=None):
         return self.solver_cls.solve(aux, rhs)
@@ -455,6 +468,28 @@ class BandedOps(AdjointSolveOps):
         return (torch.stack(perms), torch.stack(panels), torch.stack(U12s),
                 lastP, lu)
 
+    # per-group count of the pivots below the floor in the most recent
+    # factorization (a device tensor; None before the first)
+    floored_pivots = None
+
+    def _count_floored(self, interior):
+        """Per-group count of the banded factor's pivots (its panels' and
+        the last block's) below n * eps * max|LU| of the group, the dense
+        factors' floor (matsolvers.pivot_floor) with n the banded system
+        size: a count only, the factors are not floored."""
+        _, panels, _, _, last = interior
+        with torch.no_grad():
+            if panels is None:
+                floor = pivot_floor(last, self.n_pad)
+                return count_floored_pivots(last, floor)
+            amax = torch.maximum(amax_abs(panels, (0, -2, -1)),
+                                 amax_abs(last, (-2, -1)))
+            eps = torch.finfo(last.real.dtype if last.is_complex()
+                              else last.dtype).eps
+            floor = (self.n_pad * eps * amax)[:, None]
+            return (count_floored_pivots(panels, floor).sum(dim=0)
+                    + count_floored_pivots(last, floor))
+
     def _precompose_subst(self, interior):
         """Precomposed matmul-substitution operators (FUSED_SOLVE). At
         factor time each panel's unit-lower and upper blocks are inverted
@@ -602,9 +637,11 @@ class BandedOps(AdjointSolveOps):
         fused = self._fused_solve or not step
         C, Gc = self._pick_chunks(G, itemsize)
         store = {}
+        counts = []
         for i in range(C):
             lo, hi = i * Gc, min(G, (i + 1) * Gc)
             interior = self._factor_interior(self._pin(slab(lo, hi)))
+            counts.append(self._count_floored(interior))
             part = self._precompose_subst(interior) if fused \
                 else self._interior_dict(interior)
             del interior
@@ -619,6 +656,7 @@ class BandedOps(AdjointSolveOps):
                     store[name] = arr.new_empty(shape)
                 store[name].narrow(axis, lo, hi - lo).copy_(arr)
             del part
+        self.floored_pivots = counts[0] if C == 1 else torch.cat(counts)
         composition = self._composition if step else "sequential"
         aux = {"fsub" if fused else "interior": store, "factor_chunks": C,
                "composition": composition}

@@ -208,6 +208,39 @@ def interpolation_row(Lmax, m, s, theta0):
     return harmonics(Lmax, m, s, np.array([np.cos(theta0)]))[:, 0][None, :]
 
 
+@cached_function
+def triple_product_matrix(Lmax, m, s_out, s_mid, s_in, L):
+    """
+    Coupling matrix of multiplication by the axisymmetric spin-s_mid
+    harmonic Y_{L,(0,s_mid)}: W[l', l] = <Y_{l',(m,s_out)}, Y_{L,(0,s_mid)}
+    Y_{l,(m,s_in)}>_dz over l' = lmin(m, s_out)..Lmax, l = lmin(m, s_in)
+    ..Lmax. This is the quadrature route to the Gaunt/Clenshaw couplings the
+    reference builds recursively (reference: dedalus/core/basis.py:611-628
+    Clenshaw matrices inside core/arithmetic.py:359-406 prep_nccs): exact
+    because the three-envelope product is again a polynomial times an
+    integer-power envelope, integrated with 1.5x-degree Gauss-Legendre.
+    Selection rule |l' - l| <= L is imposed analytically to clear
+    quadrature dirt. Spin balance (s_out = s_mid + s_in) is NOT assumed;
+    callers pass balanced triples, where the integral is generically
+    nonzero.
+    """
+    n_out, a_o, b_o = spin2jacobi(Lmax, m, s_out)
+    n_in, a_i, b_i = spin2jacobi(Lmax, m, s_in)
+    n_mid = spin2jacobi(L, 0, s_mid)[0]
+    if n_out <= 0 or n_in <= 0 or n_mid <= 0 or L < lmin(0, s_mid):
+        return np.zeros((max(n_out, 0), max(n_in, 0)))
+    # Gauss-Legendre of degree covering l' + L + l <= 2 Lmax + L plus the
+    # (integer) envelope powers: 3 (Lmax + 1) points are always enough.
+    Nq = 3 * (Lmax + 1)
+    zq = jacobi.build_grid(Nq, 0, 0)
+    wq = jacobi.build_weights(Nq, 0, 0)
+    Yo = harmonics(Lmax, m, s_out, zq)
+    Yi = harmonics(Lmax, m, s_in, zq)
+    g = harmonics(L, 0, s_mid, zq)[L - lmin(0, s_mid)]
+    W = (Yo * (wq * g)) @ Yi.T
+    return W * _selection_mask(Lmax, m, s_out, s_in, L)
+
+
 def ell_range(Lmax, m, s):
     """The l values carried by the (m, s) coefficient vector."""
     return np.arange(lmin(m, s), Lmax + 1)

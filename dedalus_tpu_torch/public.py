@@ -4,21 +4,23 @@ User-facing API: `import dedalus_tpu_torch.public as d3`
 """
 
 from .core.coords import (Coordinate, CartesianCoordinates, PolarCoordinates,
-                          S2Coordinates)
+                          S2Coordinates, SphericalCoordinates)
 from .core.distributor import Distributor
 from .core.domain import Domain
 from .core.basis import (Jacobi, ChebyshevT, Legendre, RealFourier,
                          ComplexFourier, Fourier)
 from .core.polar import DiskBasis, AnnulusBasis
 from .core.sphere import SphereBasis, MulCosine
+from .core.spherical3d import ShellBasis
 from .core.field import Field
 from .core.problems import IVP, LBVP, NLBVP, EVP
 from .core.operators import (
     AdvectiveCFL, Differentiate, Convert, Interpolate, Integrate, Average,
     AzimuthalAverageFactory as AzimuthalAverage, LiftFactory as Lift,
-    Gradient, Divergence, Laplacian, SkewFactory as Skew, Radial, Azimuthal,
-    Trace, TimeDerivative, UnaryGridFunction, dt)
-from .core.arithmetic import Add, Multiply, DotProduct, Power
+    Gradient, Divergence, Laplacian, Curl, SkewFactory as Skew, Radial,
+    Azimuthal, Angular, Trace, TransposeComponents, SphericalEllProduct,
+    TimeDerivative, UnaryGridFunction, dt)
+from .core.arithmetic import Add, Multiply, DotProduct, CrossProduct, Power
 from .core.timesteppers import (schemes, add_scheme, MultistepIMEX,
                                 RungeKuttaIMEX, CNAB1, SBDF1, CNAB2, MCNAB2,
                                 SBDF2, CNLF2, SBDF3, SBDF4, RK111, RK222,
@@ -30,6 +32,7 @@ from .extras.flow_tools import CFL, GlobalFlowProperty, GlobalArrayReducer
 
 # lowercase operator aliases (reference: core/operators.py aliases)
 dot = DotProduct
+cross = CrossProduct
 InitialValueProblem = IVP
 LinearBoundaryValueProblem = LBVP
 NonlinearBoundaryValueProblem = NLBVP
@@ -38,13 +41,16 @@ Chebyshev = ChebyshevT
 grad = Gradient
 div = Divergence
 lap = Laplacian
+curl = Curl
 trace = Trace
+transpose = TransposeComponents
 integ = Integrate
 ave = Average
 skew = Skew
 lift = Lift
 radial = Radial
 azimuthal = Azimuthal
+angular = Angular
 Component = RadialComponent = Radial
 AzimuthalComponent = Azimuthal
 interp = Interpolate

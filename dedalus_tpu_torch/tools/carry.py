@@ -16,7 +16,9 @@ so that both packages can step, solve or eigensolve from one state on
 one assembled system, separately from the check that they assemble the
 same system. The pencil layout is the same for every geometry the port
 carries, so a polar (disk or annulus) solver's dense system carries as a
-Cartesian one's does (tests/test_torch_disk.py, test_torch_annulus.py).
+Cartesian one's does (tests/test_torch_disk.py, test_torch_annulus.py),
+and so does a shell's: its regularity-ordered tensor components and its
+(m, ell) group order are the JAX package's (tests/test_torch_shell.py).
 """
 
 import types

@@ -38,8 +38,25 @@ def test_scan_covers_the_package():
                  "dedalus_tpu_torch/core/polar.py",
                  "dedalus_tpu_torch/core/sphere.py",
                  "dedalus_tpu_torch/libraries/sphere.py",
-                 "dedalus_tpu_torch/core/stepgraph.py"):
+                 "dedalus_tpu_torch/core/stepgraph.py",
+                 "dedalus_tpu_torch/core/spherical3d.py",
+                 "dedalus_tpu_torch/libraries/spin_intertwiners.py"):
         assert must in names
+
+
+def test_shell_public_api_without_jax():
+    """The shell's public names import in a fresh interpreter with no jax
+    module loaded."""
+    import subprocess
+    import sys
+    code = ("import sys; "
+            "from dedalus_tpu_torch.public import (SphericalCoordinates, "
+            "ShellBasis, cross, curl, transpose, angular, "
+            "SphericalEllProduct); "
+            "from dedalus_tpu_torch.core import spherical3d; "
+            "from dedalus_tpu_torch.libraries import spin_intertwiners; "
+            "assert 'jax' not in sys.modules, 'jax imported'")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True)
 
 
 @pytest.mark.parametrize("path", FILES,

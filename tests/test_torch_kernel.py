@@ -446,18 +446,34 @@ def disk16x32(device):
     return build_disk_libration(16, 32, device=device)[:2]
 
 
+def shell16x8x6(device):
+    from dedalus_tpu_torch.extras.bench_problems import \
+        build_shell_convection
+    return build_shell_convection(16, 8, 6, device=device)[:2]
+
+
+def rotconv16x8x8(device):
+    from dedalus_tpu_torch.extras.bench_problems import build_rotconv
+    return build_rotconv(16, 8, 8, device=device)
+
+
 # the annulus's m = 0 pencil is singular in the example's formulation (p
 # against the velocity taus), so p and tau_u are left out; the disk's p
 # and taus carry no time derivative and sit on pencils of condition
-# ~1e6, so they are held to 1e-10 of the state, u to 1e-12
+# ~1e6, so they are held to 1e-10 of the state, u to 1e-12; rotconv's
+# (unnamed taus by index, var<i>) on pencils of condition ~1e10 to 1e-9
 @pytest.mark.cuda
 @pytest.mark.parametrize("build,held,others", [
     (annulus32x16, ("b", "u", "tau_p", "tau_b1", "tau_b2"), None),
-    (disk16x32, ("u",), 1e-10)], ids=["annulus32x16", "disk16x32"])
+    (disk16x32, ("u",), 1e-10),
+    (shell16x8x6, ("p", "b", "u", "tau_p", "tau_b1", "tau_b2", "tau_u1",
+                   "tau_u2"), None),
+    (rotconv16x8x8, ("u", "T"), 1e-9)],
+    ids=["annulus32x16", "disk16x32", "shell16x8x6", "rotconv16x8x8"])
 def test_polar_ivp_on_card_matches_cpu(build, held, others):
-    """10 steps of the polar examples' build functions (dense: no kernel launch)
-    on the card against the CPU: the held fields within 1e-12 of the
-    state's largest entry, the others within `others`."""
+    """10 steps of the polar and shell examples' build functions (dense:
+    no kernel launch) on the card against the CPU: the held fields within
+    1e-12 of the state's largest entry, the others within `others`."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device")
     out = {}
@@ -468,7 +484,8 @@ def test_polar_ivp_on_card_matches_cpu(build, held, others):
             solver.step(dt)
         assert tfused.LAUNCHES == before
         assert bool(torch.isfinite(solver.X).all())
-        out[device] = ({v.name: np.array(v["c"]) for v in solver.variables},
+        out[device] = ({v.name or f"var{i}": np.array(v["c"])
+                        for i, v in enumerate(solver.variables)},
                        np.abs(solver.X.cpu().numpy()).max())
     (card, _), (cpu, scale) = out["cuda"], out["cpu"]
     for name in cpu:

@@ -238,7 +238,39 @@ Phases (each prints its own lines; any failure exits non-zero):
      full 28x64x64 through build_rotating_convection_evp (complex shell,
      stress-free): build s, the m = 13 group's eigensolve s (scipy on the
      host), the eigenvalue nearest 963.765 within EVP_BAR.
- 20. Both kernels past q = 128 against their plain versions at random
+ 20. The ball. ball_convection64x32x48, the example
+     examples/internally_heated_convection.py at its own size through
+     extras/bench_problems.py build_ball_convection (BallBasis 64x32x48,
+     SBDF2 at dt 0.01, stress-free; the radial NCC r_vec*T keeps one
+     pencil per (m, ell)), the slice's main path: 'auto' takes the banded
+     path (dense would be 1.97 GB, above BANDED_CUTOFF_BYTES), asserted
+     with its structure (pencils (1024, 490), q = 32, NB = 16, 42 pins,
+     kl = 20, ku = 36; the first factorization finds the pinned base
+     singular by its floored pivots, repairs the pins by one swap and
+     factors again: SolverBase.factor_checked). Card vs CPU at
+     16x8x12 forced banded (q = 32, NB = 5, 18 pins) after 10 steps:
+     every field to 1e-12 of the state. Then build (host assembly and
+     structure apart), the two factoring first steps (SBDF2 starts at
+     first order; the first one repairs the pins) and BALL_STEPS
+     timed steps (steps/s), the launches counted from 0 around them =
+     (2 + 1 for the repair) + 2 x (2 + BALL_STEPS), no host sync in a
+     steady step, step_many bit-equal to the loop (steps/s of both, no
+     host sync in a replayed block, idle share and kernels per step of
+     each), no floored pivot,
+     u_r(r = 1), T(r = 1) and the shear stress (its boundary rows of
+     L X; its grid value recorded) within 1e-10 of max|u| or max|T|,
+     div(u) + tau_p (the constraint rows of L X) within 1e-12, a finite
+     state, peak memory, then one factor of M + dt L timed alone; the
+     kernel at this factor's own operators
+     (k = 1) and at its Woodbury shape (the one-hot E, k = 42: its ms is
+     the Woodbury launch's); the banded per-layer breakdown. Lane-Emden
+     (examples/lane_emden.py through build_lane_emden, Nr = 64, n = 3,
+     dense): Newton iterations to a perturbation norm of 1e-10, s per
+     iteration, R = f(0)^((n-1)/2) within 1e-5 of Boyd's
+     6.896848619376960. The complex ball (dense): an ell-coupled NCC LBVP
+     on a complex128 ball card vs CPU to 1e-12 (and within 1e-9 of the
+     known solution).
+ 21. Both kernels past q = 128 against their plain versions at random
      operators of LARGE_Q_SHAPES (q = 232 and 512) in f64, f32,
      complex128, complex64 and bf16 (each with its error, warm and cold
      ms, byte bound, torch.sum over the same bytes, plain ms); the kernels
@@ -329,7 +361,7 @@ ROTCONV_STEPS = 10
 # tests/test_coupled_ncc.py::test_rotating_convection_evp_full)
 EVP_SIZE = (28, 64, 64)
 EVP_BAR = 0.05
-# the kernels past q = 128 (phase 20): random operators at rotconv
+# the kernels past q = 128 (phase 21): random operators at rotconv
 # 32x16x16's shape (q = 232), at rotconv 64x32x32's (q = 392, NB = 28)
 # and at the kernels' bound q = 512, in every dtype, both directions:
 # (G, NB, q)
@@ -354,6 +386,21 @@ CONDITIONED_FACTOR = 10
 # 700.00 W)
 ROTCONV_DYNAMIC = ("u", "T")
 ROTCONV_ALGEBRAIC_BOUND = 1e-9
+# the ball (phase 20): examples/internally_heated_convection.py at its own
+# size, banded under 'auto' (the structure asserted: the pencil shape, q,
+# NB, the pins and the band), its timed steps after the two factoring
+# first ones, and its small card vs CPU size forced banded; Lane-Emden
+# (examples/lane_emden.py) at the example's Nr and n, to the example's
+# tolerance
+BALL_SIZE = (64, 32, 48)
+BALL_STRUCTURE = {"pencil_shape": [1024, 490], "q": 32, "NB": 16,
+                  "pins": 42, "kl": 20, "ku": 36}
+BALL_SMALL = (16, 8, 12)
+BALL_SMALL_STRUCTURE = {"q": 32, "NB": 5, "pins": 18}
+BALL_STEPS = 20
+LANE_EMDEN_NR = 64
+LANE_EMDEN_N = 3.0
+LANE_EMDEN_TOL = 1e-10
 RESULTS = {}
 
 
@@ -610,7 +657,7 @@ def breakdown(label, solver, dt, reps, factor=True):
     from dedalus_tpu_torch.core.subsystems import gather_state, scatter_state
     ops, X = solver.ops, solver.X
     M, L = solver.M_mat, solver.L_mat
-    aux = solver.timestepper._lhs_aux[0]
+    aux = step_aux(solver)
     fp = X.new_ones((X.shape[0], ops.n_pad))
     layout, variables = solver.layout, solver.variables
     out = {
@@ -2499,9 +2546,252 @@ def complex_shell_phase(evp_size):
     return rec
 
 
+def banded_ball(size, structure, device):
+    """build_ball_convection forced banded on `device`; fails unless its
+    structure is `structure` (q, NB, pins) and no pivot of its pinned base
+    needs flooring after the first step."""
+    from dedalus_tpu_torch.extras.bench_problems import \
+        build_ball_convection
+    solver, dt, _ = build_ball_convection(*size, matsolver="banded",
+                                          device=device)
+    ops = solver.ops
+    got = {"q": ops.q, "NB": ops.NB, "pins": ops.t}
+    if ops.kind != "banded" or got != structure:
+        fail(f"ball {size} forced banded: {ops.kind} path with {got}, not "
+             f"{structure}")
+    return solver, dt
+
+
+def ball_checks(label, solver):
+    """A finite state, u_r(r = 1), T(r = 1) and the shear stress within
+    1e-10 of max|u| or max|T| (tests/test_ball.py's bar), and div(u) +
+    tau_p as the constraint rows of L X within 1e-12. The shear stress
+    is held as its boundary rows of L X, as the pencils enforce it; its
+    value on the grid is recorded. That grid value grows with the
+    resolution (5e-13, 1.9e-11 and 6.6e-10 of max|u| at 16x8x12,
+    32x16x24 and 64x32x48 after 30, 30 and ~60 steps, the boundary rows
+    ~1e-18), and the JAX package's dense run gives the same one on the
+    CPU (5.1e-13 and 2.0e-11 at the first two sizes;
+    tests/test_torch_ball.py holds the two to 1e-12 of max|u|)."""
+    import numpy as np
+    import torch
+    import dedalus_tpu_torch.public as d3
+    if not bool(torch.isfinite(solver.X).all()):
+        fail(f"{label}: non-finite state")
+    fields = {v.name: v for v in solver.variables}
+    u, T = fields["u"], fields["T"]
+    u_max = float(np.abs(np.array(u["g"])).max())
+    T_max = float(np.abs(np.array(T["g"])).max())
+    strain = d3.grad(u) + d3.trans(d3.grad(u))
+    errs = {
+        "u_r(r=1)/max|u|": float(np.abs(np.array(
+            d3.radial(u(r=1)).evaluate()["g"])).max()) / u_max,
+        "shear_stress rows of L X/max|u|": constraint_residual(solver, 3)
+        / u_max,
+        "T(r=1)/max|T|": float(np.abs(np.array(
+            T(r=1).evaluate()["g"])).max()) / T_max}
+    bad = {k: v for k, v in errs.items() if not v <= 1e-10}
+    errs["shear_stress on the grid/max|u| (recorded)"] = float(np.abs(
+        np.array(d3.angular(d3.radial(strain(r=1), index=1)).evaluate()[
+            "g"])).max()) / u_max
+    errs["div(u)+tau_p"] = constraint_residual(solver, 0)
+    if not errs["div(u)+tau_p"] <= 1e-12:
+        bad["div(u)+tau_p"] = errs["div(u)+tau_p"]
+    errs.update(u_max=u_max, T_max=T_max)
+    log(f"{label} checks " + json.dumps(errs))
+    if bad:
+        fail(f"{label}: checks out of bound: {bad}")
+    return errs
+
+
+def ball_phase(size, steps):
+    """ball_convection64x32x48: examples/internally_heated_convection.py
+    at its own size, banded under 'auto' (phase 20). Returns (record, the
+    solve kernel's k = 1 record at this factor's operators)."""
+    import torch
+    from dedalus_tpu_torch.core import fusedstep
+    from dedalus_tpu_torch.extras.bench_problems import \
+        build_ball_convection
+    label = "ball_convection%dx%dx%d" % size
+    small = "ball_convection%dx%dx%d" % BALL_SMALL
+    rec = {"cell": label, "size": list(size), "steps": steps,
+           "card_vs_cpu_rel": polar_card_vs_cpu(
+               small + " banded",
+               lambda device: banded_ball(BALL_SMALL, BALL_SMALL_STRUCTURE,
+                                          device),
+               10, None, None)}
+    release()
+    torch.cuda.reset_peak_memory_stats()
+    rec["allocated_before_build_GB"] = torch.cuda.memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    solver, dt, flow = build_ball_convection(*size, device="cuda")
+    torch.cuda.synchronize()
+    rec["build_s"] = time.perf_counter() - t0
+    rec["build_phases_s"] = dict(solver.build_seconds)
+    ops, st = solver.ops, solver.structure
+    rec.update(ops=ops.kind, pencil_shape=list(solver.pencil_shape),
+               S=st.S, q=ops.q, NB=ops.NB, pins=ops.t, kl=st.kl, ku=st.ku,
+               after_build_GB=torch.cuda.memory_allocated() / 1e9)
+    log(f"{label} build " + json.dumps(rec))
+    got = {k: rec[k] for k in BALL_STRUCTURE}
+    if ops.kind != "banded" or got != BALL_STRUCTURE:
+        fail(f"{label}: {ops.kind} path with {got}, not banded with "
+             f"{BALL_STRUCTURE}")
+    ts = solver.timestepper
+    # the main path: the two factoring first steps (SBDF2 starts at first
+    # order; the first one repairs the pins and factors again) and the
+    # timed ones, the counts set to 0 just before and read just after;
+    # the example's flow property (a host read every 10 steps) is off
+    solver.evaluator.handlers.remove(flow.properties)
+    reset_launches()
+    t0 = time.perf_counter()
+    solver.step(dt)
+    solver.step(dt)
+    torch.cuda.synchronize()
+    rec["first_two_steps_s"] = time.perf_counter() - t0
+    rec["dt"] = dt
+    rec["steps_per_s"] = steps_per_s(solver, dt, steps)
+    rec["launches"] = dict(fusedstep.LAUNCHES)
+    rec["build_phases_s"] = dict(solver.build_seconds)
+    ops, st = solver.ops, solver.structure
+    rec["pin_swaps"] = st.pin_swaps
+    rec["factorizations"] = ts.factorizations
+    # each pin swap factors the first step's matrix once more
+    rec["expected_launches"], _ = expected_launches(
+        solver, 2 + steps, factorizations=ts.factorizations + st.pin_swaps)
+    if ts.factorizations != 2:
+        fail(f"{label}: {ts.factorizations} factorizations; SBDF2 at a "
+             "constant dt makes 2")
+    if rec["launches"]["banded_subst"] != rec["expected_launches"]:
+        fail(f"{label}: {rec['launches']} kernel launches, expected "
+             f"{rec['expected_launches']} of banded_subst")
+    check_no_host_syncs(label, rec, solver, dt)
+    rec["step_many"] = step_many_check(label, solver, dt, steps, 10)
+    if not rec["step_many"]["replay_bit_equal"]:
+        fail(f"{label}: the replayed block is not bit-equal to the loop")
+    rec["floored_pivots"] = floored_pivot_counts(solver)
+    if rec["floored_pivots"]["total"]:
+        fail(f"{label}: {rec['floored_pivots']} floored pivots")
+    rec["checks"] = ball_checks(label, solver)
+    rec["max_memory_allocated_GB"] = torch.cuda.max_memory_allocated() / 1e9
+    # one factor of M + dt L timed alone, outside the counted window and
+    # after the first step has repaired the pins (the structure's first
+    # factorization is the solver's own, through factor_checked)
+    t0 = time.perf_counter()
+    aux = ops.factor_lincomb(1.0, solver.M_mat, dt, solver.L_mat)
+    torch.cuda.synchronize()
+    rec["factor_s"] = time.perf_counter() - t0
+    rec["factor_chunks"] = aux["factor_chunks"]
+    del aux
+    release()
+    log(f"{label} " + json.dumps(rec))
+    # the kernel at this factor's own operators: k = 1 (the step's
+    # solves) and the factor's Woodbury solve (its E: one-hot columns at
+    # the pins)
+    aux = step_aux(solver)
+    fsub = {k: aux["fsub"][k] for k in ("FwdOp", "BwdOp", "lastOp")}
+    G = solver.pencil_shape[0]
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    fp = torch.randn((G, ops.n_pad), generator=gen, device="cuda",
+                     dtype=torch.float64)
+    kernel = check_kernel(f"{label}-factors", fsub, fp, conditioned=True)
+    del fp
+    E = torch.zeros((G, ops.t, ops.n_pad), dtype=torch.float64,
+                    device="cuda")
+    E[:, torch.arange(ops.t, device="cuda"), ops._pin_pos_t] = 1.0
+    rec["woodbury_kernel"] = check_kernel(
+        f"{label}-factors-woodbury", fsub, E, conditioned=True)
+    rec["woodbury_ms"] = rec["woodbury_kernel"]["ms"]
+    del E, aux, fsub
+    release()
+    rec["breakdown_ms"] = breakdown(label, solver, dt, 10, factor=False)
+    rec["phase_max_memory_allocated_GB"] = \
+        torch.cuda.max_memory_allocated() / 1e9
+    rec["iteration"] = solver.iteration
+    log(f"{label} " + json.dumps({k: rec[k] for k in (
+        "build_s", "build_phases_s", "factor_s", "woodbury_ms",
+        "steps_per_s", "pencil_shape", "q", "NB", "pins", "pin_swaps",
+        "max_memory_allocated_GB", "host_syncs_per_step")}))
+    del solver, flow
+    return rec, kernel
+
+
+def lane_emden_phase(Nr, n):
+    """examples/lane_emden.py (dense NLBVP, phase 20): Newton iterations
+    to a perturbation norm of LANE_EMDEN_TOL, seconds per iteration, and
+    the stellar radius R = f(0)^((n-1)/2) within 1e-5 of Boyd's."""
+    import torch
+    from dedalus_tpu_torch.extras.bench_problems import (build_lane_emden,
+                                                         LANE_EMDEN_R)
+    t0 = time.perf_counter()
+    solver, f, radius = build_lane_emden(Nr, n, device="cuda")
+    torch.cuda.synchronize()
+    rec = {"Nr": Nr, "n": n, "build_s": time.perf_counter() - t0,
+           "pencil_shape": list(solver.pencil_shape),
+           "ops": solver.ops.kind}
+    norms, secs = [], []
+    while not norms or norms[-1] > LANE_EMDEN_TOL:
+        t0 = time.perf_counter()
+        solver.newton_iteration()
+        norms.append(float(solver.perturbation_norm()))
+        secs.append(time.perf_counter() - t0)
+        if len(norms) > 30:
+            fail(f"lane_emden{Nr}: no convergence in 30 iterations: {norms}")
+    R = radius()
+    rec.update(iterations=len(norms), perturbation_norms=norms,
+               s_per_iteration=sum(secs) / len(secs), R=R,
+               R_error=abs(R - LANE_EMDEN_R[n]))
+    log(f"lane_emden{Nr} " + json.dumps(rec))
+    if not rec["R_error"] < 1e-5:
+        fail(f"lane_emden{Nr}: R = {R} is {rec['R_error']:.3e} from "
+             f"{LANE_EMDEN_R[n]}")
+    del solver, f
+    return rec
+
+
+def complex_ball_lbvp(device):
+    """An ell-coupled NCC LBVP on a complex128 ball 8x8x8 (the f(theta,
+    r)*u product of tests/test_coupled_ncc.py's ball cases): f u = F for a
+    known u. Returns (u coefficients, max grid error against it)."""
+    import numpy as np
+    import dedalus_tpu_torch.public as d3
+    coords = d3.SphericalCoordinates("phi", "theta", "r")
+    dist = d3.Distributor(coords, dtype=np.complex128, device=device)
+    ball = d3.BallBasis(coords, shape=(8, 8, 8), radius=1.0,
+                        dtype=np.complex128)
+    phi, theta, r = dist.local_grids(ball)
+    z = r * np.cos(theta)
+    f = dist.Field(name="f", bases=ball.meridional_basis)
+    f["g"] = 2.0 + z ** 2 + 0.3 * z
+    u = dist.Field(name="u", bases=ball)
+    u_target = dist.Field(name="u_target", bases=ball)
+    u_target["g"] = ((r * np.sin(theta) * np.cos(phi)) ** 2 + 0.5 * z
+                     + 0.2 * z ** 2 + 1j * r * np.sin(theta) * np.sin(phi))
+    F = (f * u_target).evaluate()
+    problem = d3.LBVP([u], namespace={"f": f, "u": u, "F": F})
+    problem.add_equation("f*u = F")
+    problem.build_solver().solve()
+    err = float(np.abs(np.asarray(u["g"])
+                       - np.asarray(u_target["g"])).max())
+    return np.array(u["c"]), err
+
+
+def complex_ball_phase():
+    """The complex ball (dense, phase 20): the coupled-NCC LBVP card vs
+    CPU to 1e-12 of the solution, and within 1e-9 of the known u."""
+    card, card_err = complex_ball_lbvp("cuda")
+    cpu, cpu_err = complex_ball_lbvp("cpu")
+    rec = {"lbvp_card_vs_cpu_rel": rel_diff(card, cpu),
+           "lbvp_error_vs_exact": [card_err, cpu_err]}
+    log("complex ball lbvp " + json.dumps(rec))
+    if not rec["lbvp_card_vs_cpu_rel"] <= 1e-12 or not card_err < 1e-9:
+        fail(f"complex ball LBVP: {rec}")
+    return rec
+
+
 def large_q_kernels():
     """Both kernels against their plain versions past q = 128, at random
-    operators of LARGE_Q_SHAPES in every dtype (phase 20)."""
+    operators of LARGE_Q_SHAPES in every dtype (phase 21)."""
     import torch
     recs = []
     for G, NB, q in LARGE_Q_SHAPES:
@@ -2517,12 +2807,21 @@ def large_q_kernels():
     return recs
 
 
+def step_aux(solver):
+    """The factor of the solver's current step: a Runge-Kutta scheme
+    keeps one per distinct implicit coefficient (the first here), a
+    multistep scheme the one of its leading coefficients."""
+    aux = solver.timestepper._lhs_aux
+    return aux if isinstance(aux, dict) and "factor_chunks" in aux \
+        else aux[0]
+
+
 def expected_launches(solver, steps, factorizations):
     """One launch per factorization (the Woodbury solve) and one per
     solve, whatever the factor's G-chunk count; also returns that count."""
     ts = solver.timestepper
     solves = steps * ts.stages * (1 + solver.ops.sweeps)
-    return factorizations + solves, ts._lhs_aux[0]["factor_chunks"]
+    return factorizations + solves, step_aux(solver)["factor_chunks"]
 
 
 def main():
@@ -3036,6 +3335,50 @@ def main():
     phase_done("19 shell")
 
     # --------------------------------------------------------- phase 20
+    # the ball: internally heated convection at the example's size, banded
+    # under 'auto' (the slice's main path: its launches counted from 0
+    # around the factoring steps and the timed ones); Lane-Emden and the
+    # complex ball, dense (no kernel: their counts must stay 0)
+    ball_label = "ball_convection%dx%dx%d" % BALL_SIZE
+    RESULTS["ball"] = {}
+    RESULTS["ball"][ball_label], ball_kernel = ball_phase(BALL_SIZE,
+                                                          BALL_STEPS)
+    release()
+    le_label = "lane_emden%d" % LANE_EMDEN_NR
+    RESULTS["ball"][le_label] = dense_path(
+        le_label, lambda: lane_emden_phase(LANE_EMDEN_NR, LANE_EMDEN_N))
+    release()
+    RESULTS["ball"]["complex_ball"] = dense_path(
+        "complex ball", complex_ball_phase)
+    release()
+    brec = RESULTS["ball"][ball_label]
+    summary = {ball_label: {k: brec.get(k) for k in (
+        "pencil_shape", "ops", "q", "NB", "pins", "kl", "ku", "pin_swaps",
+        "build_s", "build_phases_s", "factor_s", "woodbury_ms",
+        "steps_per_s", "max_memory_allocated_GB",
+        "allocated_before_build_GB", "host_syncs_per_step",
+        "floored_pivots", "card_vs_cpu_rel", "launches",
+        "expected_launches", "factorizations", "breakdown_ms")}}
+    sm = brec["step_many"]
+    summary[ball_label].update({
+        "loop_steps_per_s": sm["loop_steps_per_s"],
+        "block_steps_per_s": sm["block_steps_per_s"],
+        "replay_bit_equal": sm["replay_bit_equal"],
+        "host_syncs_per_block": sm["host_syncs_per_block"],
+        "idle_share": [sm["profile_loop"]["idle_share"],
+                       sm["profile_block"]["idle_share"]],
+        "kernels_per_step": [sm["profile_loop"]["kernels_per_step"],
+                             sm["profile_block"]["kernels_per_step"]],
+        "kernel_ms": ball_kernel["ms"],
+        "kernel_share_of_bound": ball_kernel["share_of_bound"]})
+    summary[le_label] = {k: RESULTS["ball"][le_label][k] for k in (
+        "iterations", "s_per_iteration", "R", "R_error", "build_s")}
+    summary["complex_ball"] = RESULTS["ball"]["complex_ball"]
+    summary["card"] = card
+    log("ball " + json.dumps(summary))
+    phase_done("20 ball")
+
+    # --------------------------------------------------------- phase 21
     # both kernels past q = 128 at random operators in every dtype
     RESULTS["large_q_kernels"] = large_q_kernels()
     # times and bound at each kernel's main path shapes (the solve's
@@ -3070,12 +3413,14 @@ def main():
                "complex ivp1024x512": RESULTS["complex_ivp"]["launches"],
                rotconv_label: RESULTS["shell"][rotconv_label]["launches"][
                    "banded_subst"],
+               ball_label: brec["launches"]["banded_subst"],
                **{f"{path} step_many": rec["step_many"]["launches"]["replay"]
                   for path, rec in (("rb256x64", main), ("kdv1024",
                                                           RESULTS["kdv"]),
                                     ("shear512", RESULTS["shear"]),
                                     ("sw512x256", RESULTS["sw"]),
-                                    ("rb3d_128", RESULTS["rb3d"]))},
+                                    ("rb3d_128", RESULTS["rb3d"]),
+                                    (ball_label, brec))},
                **{path: run["launches_value_and_grad"]["banded_subst"]
                   for path, run in grad_paths.items()},
                **RESULTS["dense_path_launches"]}
@@ -3107,6 +3452,9 @@ def main():
                              (rotconv_label + " woodbury",
                               RESULTS["shell"][rotconv_label][
                                   "woodbury_kernel"]),
+                             (ball_label, ball_kernel),
+                             (ball_label + " woodbury",
+                              brec["woodbury_kernel"]),
                              ("sw512x256", sw_kernel),
                              ("rb3d_128 woodbury",
                               RESULTS["rb3d"]["woodbury_kernel"]),
@@ -3164,7 +3512,7 @@ def main():
         if not any(entry["launches_by_path"].values()):
             fail(f"{entry['name']} was launched on no path of this run")
     RESULTS["kernels"] = kernels["kernels"]
-    phase_done("20 kernels line")
+    phase_done("21 kernels line")
     log(json.dumps(kernels))
     log(card)
     log(json.dumps({"ok": True, "device": {

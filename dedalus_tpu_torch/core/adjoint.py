@@ -206,8 +206,10 @@ class DifferentiableIVP:
 
         def aux_for(a, b):
             key = (round(float(a[0]), 14), round(float(b[0]), 14))
-            return self._factor(key, lambda: solver.ops.factor_lincomb(
-                float(a[0]), solver.M_mat, float(b[0]), solver.L_mat))
+            return self._factor(key, lambda: solver.factor_checked(
+                lambda: solver.ops.factor_lincomb(
+                    float(a[0]), solver.M_mat, float(b[0]), solver.L_mat),
+                {"M": float(a[0]), "L": float(b[0])}))
 
         return (ramp, [aux_for(a, b) for a, b, _ in ramp], stat,
                 aux_for(*stat[:2]))
@@ -218,9 +220,10 @@ class DifferentiableIVP:
         ts, solver = self.timestepper, self.solver
 
         def build():
-            auxs = [solver.ops.factor_lincomb(1.0, solver.M_mat, dt * h,
-                                              solver.L_mat)
-                    for h in ts.uniq_H_diag]
+            auxs = [solver.factor_checked(
+                lambda: solver.ops.factor_lincomb(1.0, solver.M_mat, dt * h,
+                                                  solver.L_mat),
+                {"M": 1.0, "L": dt * h}) for h in ts.uniq_H_diag]
             return [auxs[j] for j in ts.stage_slot]
 
         return self._factor(round(float(dt), 14), build)

@@ -1,20 +1,20 @@
 """
 Arithmetic expression nodes (counterpart of dedalus_tpu/core/arithmetic.py:
 the Cartesian products, the angularly constant polar NCCs, and the
-spherical NCCs of the shell and the sphere): Add, ScalarMultiply,
+spherical NCCs of the shell, the ball and the sphere): Add, ScalarMultiply,
 MultiplyFields, DotProduct, CrossProduct, Power.
 
 Grid-space products are pointwise torch ops; LHS products with a
 non-constant-coefficient (NCC) factor assemble multiplication matrices by
 quadrature (tools.jacobi.multiplication_matrix; the annulus's
 radial_multiplication_matrix; the disk's per-(m, spin) Zernike stacks; the
-shell's per-(ell, regularity) radial matrices for radial profiles and
-SWSH triple-product couplings for colatitude-varying ones); a constant
-NCC factor (e.g. the unit vector in `b*ez`) becomes a tensor-placement
-factor times a scalar. NCCs that vary with the azimuth of a disk or
+shell's and the ball's per-(ell, regularity) radial matrices for radial
+profiles and SWSH triple-product couplings for colatitude-varying ones,
+per (ell', ell) pair on the ball, whose Zernike spaces depend on ell); a
+constant NCC factor (e.g. the unit vector in `b*ez`) becomes a
+tensor-placement factor times a scalar. NCCs that vary with the azimuth of a disk or
 annulus couple the m groups and are not carried yet: they raise
-NotImplementedError. The ball's NCCs wait for the ball (ROADMAP queue 1
-item 3).
+NotImplementedError.
 """
 
 import numpy as np
@@ -631,7 +631,7 @@ class ProductBase(Future):
         ncc_basis = self._spherical_regularity_basis(ncc)
         if basis is None or ncc_basis is None:
             raise NonlinearOperatorError(
-                "Curvilinear NCCs require shell bases on both factors.")
+                "Curvilinear NCCs require shell/ball bases on both factors.")
         rank_n = spherical_rank(ncc.tensorsig, basis.cs)
         rank_in = spherical_rank(operand.tensorsig, basis.cs)
         ncomp_n = 3 ** rank_n
@@ -848,14 +848,15 @@ class ProductBase(Future):
         cache = getattr(self, "_sph_gen_cache", None)
         if cache is not None and cache.get("version") == version:
             return cache
-        from .spherical3d import ShellBasis, BALL_PENDING
-        if not isinstance(basis, ShellBasis):
-            raise NotImplementedError(BALL_PENDING)
+        from .spherical3d import ShellBasis, spherical_rank
         spin_prof, tol = self.sph_ncc_angular_profile(ncc, basis, basis.cs)
         spins = component_spins(ncc.tensorsig, basis.cs)
+        rank_n = spherical_rank(ncc.tensorsig, basis.cs)
+        shell = isinstance(basis, ShellBasis)
         Lmax_n = ncc_basis.Lmax
         Ntheta_n = spin_prof.shape[1]
         terms = {}
+        max_L = 0
         for a in range(spin_prof.shape[0]):
             pa = spin_prof[a]
             if np.abs(pa).max() <= tol:
@@ -872,17 +873,36 @@ class ProductBase(Future):
                 if np.abs(coeffs.imag).max() < 1e-13 * max(
                         np.abs(coeffs).max(), 1e-300):
                     coeffs = coeffs.real
-                # the shell's radial space is ell-independent: one
-                # multiplication matrix per (a, L)
-                B = sparsify(basis.radial_multiplication_matrix(
-                    ncc_basis.scalar_radial_coeffs(coeffs),
-                    ncc_basis.k, k_out=0),
-                    self._ncc_sparsify_cutoff(np.dtype(ncc.dtype)))
-                rows.append((L, B))
+                if shell:
+                    # the shell's radial space is ell-independent: one
+                    # multiplication matrix per (a, L)
+                    B = sparsify(basis.radial_multiplication_matrix(
+                        ncc_basis.scalar_radial_coeffs(coeffs),
+                        ncc_basis.k, k_out=0),
+                        self._ncc_sparsify_cutoff(np.dtype(ncc.dtype)))
+                    rows.append((L, B))
+                else:
+                    # the ball's Zernike spaces are ell-indexed: store the
+                    # profile's Zernike coefficients (the minimal smooth
+                    # envelope degree has parity L + rank and vanishing
+                    # order >= L - rank) and build per-(ell, ell') pair
+                    # matrices lazily at assembly
+                    l_env = max(L - rank_n, (L + rank_n) % 2)
+                    if np.iscomplexobj(coeffs):
+                        rc = (ncc_basis.scalar_radial_coeffs(
+                                  coeffs.real, l_env=l_env)
+                              + 1j * ncc_basis.scalar_radial_coeffs(
+                                  coeffs.imag, l_env=l_env))
+                    else:
+                        rc = ncc_basis.scalar_radial_coeffs(coeffs,
+                                                            l_env=l_env)
+                    rows.append((L, (rc, l_env)))
+                max_L = max(max_L, L)
             if rows:
                 terms[a] = rows
         cache = self._sph_gen_cache = {"version": version, "terms": terms,
-                                       "spins": spins}
+                                       "spins": spins, "max_L": max_L,
+                                       "pair_cache": {}}
         return cache
 
     def _sph_coupled_ncc_matrix(self, subproblem, ncc, operand, ncc_index):
@@ -897,16 +917,16 @@ class ProductBase(Future):
         (reference: dedalus/core/arithmetic.py:359-406 prep_nccs /
         build_ncc_matrices with Clenshaw, core/basis.py:611-628).
         """
-        from .spherical3d import (q_stack, spherical_rank, ShellBasis,
-                                  BALL_PENDING)
+        from .spherical3d import q_stack, spherical_rank, ShellBasis
         from ..libraries import sphere as swsh
         basis = self._spherical_regularity_basis(operand)
         ncc_basis = self._spherical_regularity_basis(ncc)
         if basis is None or ncc_basis is None:
             raise NonlinearOperatorError(
-                "Curvilinear NCCs require shell bases on both factors.")
+                "Curvilinear NCCs require shell/ball bases on both factors.")
         if not isinstance(basis, ShellBasis):
-            raise NotImplementedError(BALL_PENDING)
+            return self._sph_coupled_ncc_matrix_ball(subproblem, ncc,
+                                                     operand, ncc_index)
         layout = subproblem.layout
         az = basis.first_axis
         gs = layout.sep_widths[az]
@@ -1008,6 +1028,131 @@ class ProductBase(Future):
             # between the component and ell kron positions (complex
             # couplings act through the real 2x2 pair representation)
             total = _interleave_gs(total, nout, nin, gs, Ntheta * Nr)
+        return sp.csr_matrix(total)
+
+    def _sph_coupled_ncc_matrix_ball(self, subproblem, ncc, operand,
+                                     ncc_index):
+        """
+        Ball variant of the ell-coupled NCC assembly: Zernike radial
+        spaces are ell-indexed, so the kron(W, B) factorization of the
+        shell does not apply — each (ell', ell) block combines the SWSH
+        triple-product coupling with a PER-PAIR radial multiplication
+        matrix mapping Z^(ell + t_in) -> Z^(ell' + t_out)
+        (dedalus_tpu/core/arithmetic.py:1348; reference: the l-coupled Zernike Clenshaw couplings,
+        dedalus/core/basis.py:4101 + core/arithmetic.py:359-406).
+        """
+        from .spherical3d import q_stack, spherical_rank, reg_totals
+        from ..libraries import sphere as swsh
+        basis = self._spherical_regularity_basis(operand)
+        ncc_basis = self._spherical_regularity_basis(ncc)
+        layout = subproblem.layout
+        az = basis.first_axis
+        gs = layout.sep_widths[az]
+        ms = basis.group_m()
+        g = subproblem.group[az]
+        m = int(ms[g])
+        Lmax = basis.Lmax
+        Ntheta, Nr = basis.Ntheta, basis.Nr
+        rank_in = spherical_rank(operand.tensorsig, basis.cs)
+        rank_out = spherical_rank(self.tensorsig, basis.cs)
+        nin, nout = 3 ** rank_in, 3 ** rank_out
+        shape = (nout * gs * Ntheta * Nr, nin * gs * Ntheta * Nr)
+        if basis.complex and g == basis.Nphi // 2:
+            return sp.csr_matrix(shape)  # Nyquist: all slots invalid
+        T_spin = self._spin_bilinear_map(ncc, operand, ncc_index)
+        data = self._sph_ncc_general_data(ncc, operand, basis, ncc_basis,
+                                          ncc_index)
+        s_in = component_spins(operand.tensorsig, basis.cs)
+        s_out = component_spins(self.tensorsig, basis.cs)
+        s_ncc = data["spins"]
+        t_in = reg_totals(rank_in)
+        t_out = reg_totals(rank_out)
+        Qi = q_stack(Ntheta, rank_in)
+        Qo = q_stack(Ntheta, rank_out)
+        pair_cache = data["pair_cache"]
+        flat_terms = [(a, L, payload)
+                      for a, rows in data["terms"].items()
+                      for L, payload in rows]
+        max_L = data["max_L"]
+        X0 = Ntheta * Nr
+        rows_l, cols_l, vals_l = [], [], []
+        for lp in range(Ntheta):            # ell' (output)
+            for l in range(max(0, lp - max_L),
+                           min(Ntheta, lp + max_L + 1)):   # ell (input)
+                # angular x tensor coefficient per (gamma, beta, term)
+                A3 = np.zeros((nout, nin, len(flat_terms)), dtype=complex)
+                for ti, (a, L, payload) in enumerate(flat_terms):
+                    sa = int(s_ncc[a])
+                    for c in range(nout):
+                        sc = int(s_out[c])
+                        for b in range(nin):
+                            t = T_spin[c, a, b]
+                            if abs(t) < 1e-13:
+                                continue
+                            sb = int(s_in[b])
+                            W = swsh.triple_product_matrix(Lmax, m, sc,
+                                                           sa, sb, L)
+                            r0 = swsh.lmin(m, sc)
+                            c0 = swsh.lmin(m, sb)
+                            if (lp < r0 or l < c0
+                                    or lp - r0 >= W.shape[0]
+                                    or l - c0 >= W.shape[1]):
+                                continue
+                            w = W[lp - r0, l - c0]
+                            if w == 0.0:
+                                continue
+                            A3[:, :, ti] += (t * w) * np.outer(
+                                Qo[lp][c], Qi[l][b])
+                if not np.abs(A3).any():
+                    continue
+                for gam in range(nout):
+                    for bet in range(nin):
+                        coefs = A3[gam, bet]
+                        if not np.abs(coefs).any():
+                            continue
+                        blk = None
+                        for ti, (a, L, payload) in enumerate(flat_terms):
+                            cf = coefs[ti]
+                            if abs(cf) < 1e-14:
+                                continue
+                            rc, l_env = payload
+                            key = (id(rc), int(t_in[bet]), int(t_out[gam]),
+                                   l, lp)
+                            B = pair_cache.get(key)
+                            if B is None:
+                                B = sparsify(basis.ncc_radial_pair_matrix(
+                                    rc, ncc_basis.k, l_env, t_in[bet],
+                                    t_out[gam], l, lp, k_out=0),
+                                    self._ncc_sparsify_cutoff(np.dtype(ncc.dtype)))
+                                pair_cache[key] = B
+                            term = cf * B
+                            blk = term if blk is None else blk + term
+                        if blk is None or blk.nnz == 0:
+                            continue
+                        coo = blk.tocoo()
+                        rows_l.append(gam * X0 + lp * Nr + coo.row)
+                        cols_l.append(bet * X0 + l * Nr + coo.col)
+                        vals_l.append(coo.data)
+        if rows_l:
+            total = sp.csr_matrix(
+                (np.concatenate(vals_l),
+                 (np.concatenate(rows_l), np.concatenate(cols_l))),
+                shape=(nout * X0, nin * X0))
+        else:
+            total = sp.csr_matrix((nout * X0, nin * X0), dtype=complex)
+        total = total.tocoo().tocsr()
+        imag_tol = max(1e-13, 100 * self._ncc_real_eps(np.dtype(ncc.dtype)))
+        total = _filter_rel(total, self._ncc_sparsify_cutoff(np.dtype(ncc.dtype)))
+        if total.nnz and np.abs(total.imag).max() < imag_tol * max(
+                np.abs(total).max(), 1e-300):
+            total = total.real
+        elif total.nnz and not is_complex_dtype(self.dtype) and gs < 2:
+            raise NonlinearOperatorError(
+                "This NCC product assembles complex couplings with no "
+                "azimuthal pair slots to carry them; use a complex dtype, "
+                "or move the term to the RHS.")
+        if gs > 1:
+            total = _interleave_gs(total, nout, nin, gs, X0)
         return sp.csr_matrix(total)
 
     def _s2_coupled_ncc_matrix(self, subproblem, ncc, operand, ncc_index):

@@ -58,6 +58,8 @@ class SolverBase:
 
     matrices = ("L",)
     lazy_ok = False   # EVP: per-group on-demand assembly at large sizes
+    # a banded structure's pin repair inputs, until its first factorization
+    _pin_repair = None
 
     def __init__(self, problem, matsolver=None):
         self.problem = problem
@@ -99,6 +101,7 @@ class SolverBase:
         G, S = self.pencil_shape
         dense_bytes = G * S * S * self.pencil_dtype.itemsize
         self._lazy = False
+        self._pin_repair = None
         self._batched = None
         if self.lazy_ok and dense_bytes > int(config["linear algebra"].get(
                 "EVP_LAZY_BYTES", str(1 << 28))):
@@ -220,27 +223,47 @@ class SolverBase:
                            allow_uneconomic=(self._path == "banded"))
         if not structure.ok:
             return structure.reason
-        # validity closure aligned with the matching
-        closures = []
-        for row_valid, col_valid in masks:
-            closure = compute_group_closure(structure, row_valid, col_valid)
-            if closure is None:
-                return "validity closure misaligned with matching"
-            closures.append(closure)
-        self.build_seconds["structure"] = time_mod.perf_counter() - t0
-        t0 = time_mod.perf_counter()
-        try:
-            host_dtype = (np.complex128 if is_complex_dtype(self.pencil_dtype)
-                          else np.float64)
-            matrices = build_banded_arrays(
-                coo_store, structure, names, host_dtype,
-                drop_tol=max(tol_abs, row_frac * (scale or 1.0)),
-                closures=closures)
-        except ValueError as exc:
-            return str(exc)
-        self.build_seconds["host_assembly"] += time_mod.perf_counter() - t0
+        t_struct = time_mod.perf_counter() - t0
+        host_dtype = (np.complex128 if is_complex_dtype(self.pencil_dtype)
+                      else np.float64)
+        drop_tol = max(tol_abs, row_frac * (scale or 1.0))
+
+        def band_stores():
+            """The band stores under the current structure, with the
+            validity closure aligned with its matching (a string: the
+            reason they do not apply), and the seconds of the two."""
+            t0 = time_mod.perf_counter()
+            closures = []
+            for row_valid, col_valid in masks:
+                closure = compute_group_closure(structure, row_valid,
+                                                col_valid)
+                if closure is None:
+                    return ("validity closure misaligned with matching",
+                            0.0, 0.0)
+                closures.append(closure)
+            t1 = time_mod.perf_counter()
+            try:
+                matrices = build_banded_arrays(
+                    coo_store, structure, names, host_dtype,
+                    drop_tol=drop_tol, closures=closures)
+            except ValueError as exc:
+                matrices = str(exc)
+            return matrices, t1 - t0, time_mod.perf_counter() - t1
+
+        matrices, t_closure, t_arrays = band_stores()
+        if isinstance(matrices, str):
+            return matrices
+        self.build_seconds["structure"] = t_struct + t_closure
+        self.build_seconds["host_assembly"] += t_arrays
         self._matrices = matrices
         self.structure = structure
+        structure.pin_swaps = 0
+        # the pinned base is checked by the first factorization's floored
+        # pivots (factor_checked); until then the repair keeps its inputs
+        self._pin_repair = (acc.union, acc.qualified(),
+                            np.array([m[0] for m in masks]),
+                            np.array([m[1] for m in masks]),
+                            coo_store, band_stores)
         self._install_plan(self._fusion_plan, self._solve_plan)
         logger.info(
             f"Pencil system: banded path (S={structure.S}, "
@@ -270,6 +293,81 @@ class SolverBase:
     def pencil_shape(self):
         S = sum(self.layout.slot_size(v.domain, v.tensorsig) for v in self.variables)
         return (self.layout.n_groups, S)
+
+    def _upload_matrices(self):
+        """Put the host pencil matrices on the device as the ops store
+        them (self.M_mat, self.L_mat, ...), each replacing its old store
+        only after that one is released."""
+        for name in self.matrices:
+            setattr(self, f"{name}_mat", None)
+            setattr(self, f"{name}_mat", self.ops.to_device(
+                self._matrices[name], self.pencil_dtype))
+
+    def factor_checked(self, factor, coeffs):
+        """
+        factor() -> aux, a factorization of sum(coeffs[name] * name) under
+        the current ops and device matrices. The first factorization of a
+        banded structure also checks its pinned base: its floored-pivot
+        count (one read from the device, once per structure) names the
+        groups whose factor floored a pivot; a singular pinned base there
+        is repaired one pin swap at a time (MatrixStructure.repair_pins,
+        on the factored matrix), the band stores rebuilt and put on the
+        device, and the factor run again. The repair stops when no group
+        floors, no swap applies or a swap floors no fewer groups; a
+        healthy base costs the one read. A singular base can make the
+        Woodbury capacitance singular, so that the factorization raises
+        after counting: the repair handles that too, and the error is
+        raised again if the repair does not remove it.
+        """
+        pending, self._pin_repair = self._pin_repair, None
+        if pending is None:
+            return factor()
+
+        def attempt():
+            try:
+                return factor(), None
+            except torch.linalg.LinAlgError as exc:
+                # without its traceback, whose frames hold the failed store
+                return None, exc.with_traceback(None)
+
+        aux, error = attempt()
+        if error is not None and self.floored_pivots is None:
+            raise error
+        union, qual, rows_all, cols_all, coo_store, band_stores = pending
+        structure = self.structure
+        S = structure.S
+        pr, pc = coo_store[0][self.matrices[0]][:2]
+
+        def group_matrix(g):
+            return sum(c * sps.csr_matrix((coo_store[g][name][2], (pr, pc)),
+                                          shape=(S, S))
+                       for name, c in coeffs.items())
+
+        bad = np.flatnonzero(to_numpy(self.floored_pivots))
+        while len(bad):
+            t0 = time_mod.perf_counter()
+            if not structure.repair_pins(union, qual, rows_all, cols_all,
+                                         group_matrix, bad):
+                break
+            matrices = band_stores()[0]
+            if isinstance(matrices, str):
+                raise ValueError(f"pin repair: {matrices}")
+            self._matrices = matrices
+            self._install_plan(self._fusion_plan, self._solve_plan)
+            self._upload_matrices()
+            structure.pin_swaps += 1
+            aux, error = attempt()
+            self.build_seconds["pin_repair"] = self.build_seconds.get(
+                "pin_repair", 0.0) + time_mod.perf_counter() - t0
+            now = np.flatnonzero(to_numpy(self.floored_pivots))
+            logger.info(f"Pinned base singular in {len(bad)} group(s): "
+                        f"pin swap {structure.pin_swaps} leaves {len(now)}")
+            if len(now) >= len(bad):
+                break
+            bad = now
+        if error is not None:
+            raise error
+        return aux
 
     @property
     def floored_pivots(self):
@@ -466,8 +564,7 @@ class InitialValueSolver(SolverBase):
                  enforce_real_cadence=100, warmup_iterations=10):
         init_t0 = time_mod.time()
         super().__init__(problem, matsolver=matsolver)
-        self.M_mat = self.ops.to_device(self._matrices["M"], self.pencil_dtype)
-        self.L_mat = self.ops.to_device(self._matrices["L"], self.pencil_dtype)
+        self._upload_matrices()
         self.eval_F = self.build_rhs_evaluator("F", time_field=problem.time)
         # timestepping state and the run loop's stop conditions
         self.sim_time = 0.0
@@ -515,10 +612,7 @@ class InitialValueSolver(SolverBase):
     def _install_carried(self):
         """Put carried M/L (tools/carry.py) on the device and drop the
         timestepper's factorization, so the next step factors them."""
-        self.M_mat = self.ops.to_device(self._matrices["M"],
-                                        self.pencil_dtype)
-        self.L_mat = self.ops.to_device(self._matrices["L"],
-                                        self.pencil_dtype)
+        self._upload_matrices()
         self.timestepper.drop_factor()
 
     @property
@@ -714,9 +808,9 @@ class LinearBoundaryValueSolver(SolverBase):
         self.iteration = 0
 
     def _factor_L(self):
-        self.L_mat = self.ops.to_device(self._matrices["L"],
-                                        self.pencil_dtype)
-        self._aux = self.ops.factor(self.L_mat)
+        self._upload_matrices()
+        self._aux = self.factor_checked(lambda: self.ops.factor(self.L_mat),
+                                        {"L": 1.0})
         # the build reads the floored-pivot count (a singular pencil)
         floored = self.floored_pivots
         if floored is not None:
@@ -774,9 +868,11 @@ class NonlinearBoundaryValueSolver(SolverBase):
         """One Newton step: rebuild the Jacobian around the current state,
         solve dG.dX = -G, update the variables (reference:
         core/solvers.py:470)."""
+        self.L_mat = None
         self._build_pencil_system()
-        L = self.ops.to_device(self._matrices["L"], self.pencil_dtype)
-        aux = self.ops.factor(L)
+        self._upload_matrices()
+        aux = self.factor_checked(lambda: self.ops.factor(self.L_mat),
+                                  {"L": 1.0})
         dX = self.ops.solve(aux, -self._eval_residual())
         self._last_perturbation = dX
         arrays = scatter_state(self.layout, self.variables, dX)

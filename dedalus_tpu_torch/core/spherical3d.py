@@ -1,11 +1,9 @@
 """
-The spherical shell: ShellBasis, the regularity-component helpers and the
-spherical calculus operators (counterpart of the shell half of
+The 3-D spherical bases: ShellBasis and BallBasis, the regularity-component
+helpers and the spherical calculus operators (counterpart of
 dedalus_tpu/core/spherical3d.py; reference: dedalus/core/basis.py:3682
-ShellRadialBasis, :4336 ShellBasis, dedalus/core/operators.py:3078
-SphericalEllOperator family). The ball waits for its slice (ROADMAP
-queue 1 item 3): no BallBasis is defined here, and the assembly paths
-that only a ball reaches raise NotImplementedError.
+ShellRadialBasis, :4336 ShellBasis, :3920 BallRadialBasis, :4568
+BallBasis, dedalus/core/operators.py:3078 SphericalEllOperator family).
 
   * Coefficient layout is rectangular (Nphi, Ntheta, Nr). Both angular
     axes are separable: every spherical operator is block-diagonal over
@@ -20,9 +18,11 @@ that only a ball reaches raise NotImplementedError.
   * In regularity components every calculus operator is radial-only,
     with per-(ell, regularity) matrices: gradient, divergence and curl are
     xi-weighted ladders D+ = d/dr - l/r, D- = d/dr + (l+1)/r at l = ell +
-    regtotal, each (A + c B)/dR with the shared weighted-Jacobi parts A, B
-    (core/weighted_jacobi.py), applied as ("gblocks", colatitude, stack)
-    descriptors: one batched product over the ell groups on the device.
+    regtotal, applied as ("gblocks", colatitude, stack) descriptors: one
+    batched product over the ell groups on the device. On the shell each
+    is (A + c B)/dR with the shared weighted-Jacobi parts A, B
+    (core/weighted_jacobi.py); on the ball each is a Zernike ladder at
+    degree l, and the radial transforms themselves depend on ell.
 """
 
 import numpy as np
@@ -33,20 +33,19 @@ from ..tools.cache import CachedMethod, cached_function
 from ..tools.array import match_precision
 from ..tools.general import is_complex_dtype
 from ..libraries import sphere as swsh
+from ..libraries import zernike
+from ..tools import jacobi as jacobi_tools
 from ..libraries.spin_intertwiners import (regularity_to_spin,
                                            valid_regularities)
 from .basis import Basis, AffineCOV
 from .coords import SphericalCoordinates
-from .curvilinear import promote_complex
+from .curvilinear import apply_group_stack, promote_complex
 from .domain import Domain
 from .future import ev
 from .operators import LinearOperator
 from .polar import _expand_complex_terms
 from .sphere import SphereBasis
 from .weighted_jacobi import WeightedJacobiRadial
-
-BALL_PENDING = ("The ball is not carried by the port yet (ROADMAP queue 1 "
-                "item 3); the shell is.")
 
 REG_ORDERING = (-1, +1, 0)  # index 0 = '-', 1 = '+', 2 = '0' (radial)
 
@@ -426,11 +425,528 @@ class ShellBasis(WeightedJacobiRadial, Basis):
 
 
 # ----------------------------------------------------------------------
+# Ball basis
+
+class BallBasis(Basis):
+    """
+    Solid-ball basis: SWSH angular x generalized-Zernike radius
+    (dedalus_tpu/core/spherical3d.py:421; reference:
+    dedalus/core/basis.py:4568 BallBasis, :3920 BallRadialBasis). Its
+    structure is the shell's (real dtypes carry (cos, -sin) azimuth pairs
+    in Nphi/2 groups, complex ones one m per group over Nphi groups in
+    fftfreq order), with two differences rooted in the origin regularity:
+
+      * each regularity component expands in Zernike polynomials at
+        generalized degree l = ell + regtotal, so the radial transforms
+        and operator matrices are (Ntheta, rows, cols) stacks over the ell
+        groups, applied on the device as one batched product per
+        regularity total (the reference loops per ell:
+        core/transforms.py:1451 BallRadialTransform);
+      * triangular truncation: radial slot n at harmonic degree ell is
+        valid for n >= nmin(ell) = ell // 2, a mask on rectangular arrays
+        (reference: core/basis.py:4086 _nmin).
+    """
+
+    dim = 3
+    radial_sub_axis = 2
+    regularity = True
+
+    def __init__(self, coordsystem, shape, dtype=np.float64, radius=1.0,
+                 k=0, alpha=0, dealias=(1, 1, 1), radius_library=None):
+        if not isinstance(coordsystem, SphericalCoordinates):
+            raise ValueError("Ball coordsys must be SphericalCoordinates.")
+        self.coordsystem = self.cs = coordsystem
+        self.coord = coordsystem.coords[0]
+        self.shape = tuple(shape)
+        self.dtype = np.dtype(dtype)
+        self.radius = float(radius)
+        self.k = int(k)
+        self.alpha = float(alpha)
+        if np.isscalar(dealias):
+            dealias = (dealias,) * 3
+        self.dealias = tuple(map(float, dealias))
+        self.volume = 4 / 3 * np.pi * radius ** 3
+        self.radial_COV = AffineCOV((0.0, 1.0), (0.0, radius))
+        Nphi, Ntheta, Nr = self.shape
+        self.Nphi, self.Ntheta, self.Nr = Nphi, Ntheta, Nr
+        self.Lmax = Ntheta - 1
+        self.complex = is_complex_dtype(self.dtype)
+        self.sphere_basis = SphereBasis(
+            coordsystem.S2coordsys, (Nphi, Ntheta), dtype=dtype,
+            radius=radius, dealias=self.dealias[:2], ell_separable=True)
+        self.azimuth_basis = self.sphere_basis.azimuth_basis
+        self.radius_library = radius_library
+        self.surface = self.S2_basis(radius)
+
+    def __repr__(self):
+        return f"BallBasis({self.shape}, radius={self.radius}, k={self.k})"
+
+    def S2_basis(self, radius=None):
+        """Sphere basis for boundary (tau/BC) fields."""
+        if radius is None:
+            radius = self.radius
+        return SphereBasis(
+            self.coordsystem.S2coordsys, (self.Nphi, self.Ntheta),
+            dtype=self.dtype, radius=radius, dealias=self.dealias[:2],
+            ell_separable=True)
+
+    @property
+    def meridional_basis(self):
+        """See ShellBasis.meridional_basis: aliases the full basis (NCC
+        angular structure is detected from data)."""
+        return self
+
+    @property
+    def radial_basis(self):
+        """See ShellBasis.radial_basis: aliases the full basis."""
+        return self
+
+    # ------------------------------------------------------------ structure
+
+    @property
+    def first_axis(self):
+        return self.coordsystem.first_axis
+
+    @property
+    def family_key(self):
+        return (type(self).__name__, self.shape, self.radius, self.alpha,
+                self.dtype)
+
+    @property
+    def a_k(self):
+        """Absolute Zernike weight parameter."""
+        return self.alpha + self.k
+
+    @staticmethod
+    def _nmin(ell):
+        return int(ell) // 2
+
+    def coeff_size(self, sub_axis):
+        return self.shape[sub_axis]
+
+    def sub_grid_size(self, sub_axis, scale):
+        return int(np.ceil(scale * self.shape[sub_axis]))
+
+    def sub_separable(self, sub_axis):
+        return sub_axis in (0, 1)
+
+    def sub_group_shape(self, sub_axis):
+        if sub_axis == 0:
+            return 1 if self.complex else 2
+        return 1
+
+    def sub_n_groups(self, sub_axis):
+        if sub_axis == 0:
+            return self.Nphi if self.complex else self.Nphi // 2
+        if sub_axis == 1:
+            return self.Ntheta
+        return 1
+
+    def group_m(self):
+        return self.sphere_basis.group_m()
+
+    def clone_with(self, **changes):
+        args = dict(coordsystem=self.coordsystem, shape=self.shape,
+                    dtype=self.dtype, radius=self.radius, k=self.k,
+                    alpha=self.alpha, dealias=self.dealias)
+        args.update(changes)
+        return BallBasis(**args)
+
+    def derivative_basis(self, order=1):
+        return self.clone_with(k=self.k + order)
+
+    # --------------------------------------------------------------- grids
+
+    def radial_grid(self, scale=1.0):
+        Ng = self.sub_grid_size(2, scale)
+        return self.radius * zernike.grid(3, Ng, self.alpha)
+
+    def global_grids(self, scales=(1, 1, 1)):
+        return (self.sphere_basis.azimuth_grid(scales[0]),
+                self.sphere_basis.colatitude_grid(scales[1]),
+                self.radial_grid(scales[2]))
+
+    # ---------------------------------------------------------- validity
+
+    def component_valid_mask(self, tensorsig, group, sep_widths):
+        """(ncomp, gs_az, 1, Nr): regularity validity at (m, ell) plus the
+        radial triangular truncation n >= nmin(ell)."""
+        rank = spherical_rank(tensorsig, self.cs)
+        ncomp = 3 ** rank
+        az_axis = self.first_axis
+        colat_axis = az_axis + 1
+        gs = self.sub_group_shape(0)
+        if az_axis not in sep_widths:
+            raise NotImplementedError(
+                "Ball azimuth must be a pencil (group) axis.")
+        ms = self.group_m()
+        m = ms[group[az_axis]]
+        if colat_axis in sep_widths:
+            ells = np.array([group[colat_axis]])
+        else:
+            # layout-coupled colatitude (theta-dependent NCC)
+            ells = np.arange(self.Ntheta)
+        n = np.arange(self.Nr)
+        mask = np.zeros((ncomp, gs, ells.size, self.Nr), dtype=bool)
+        for i, ell in enumerate(ells):
+            comp_ok = valid_regularities(int(ell), rank) & (ell >= abs(m))
+            n_ok = n >= self._nmin(int(ell))
+            mask[:, :, i, :] = (comp_ok[:, None, None]
+                                & n_ok[None, None, :])
+        if self.sphere_basis.nyquist(group[az_axis]):
+            mask[:] = False
+        if not self.complex and rank <= 1:
+            # Drop msin slots at ell == 0 for real scalars and vectors
+            # (reference: core/basis.py:4301)
+            mask[:, 1, ells == 0, :] = False
+        return mask
+
+    # ------------------------------------------------- radial matrix stacks
+    # (Ntheta, rows, cols) stacks over the ell groups; slot dimensions are
+    # right-aligned at nmin(ell).
+
+    def _build_ell_stack(self, build, rows, cols, align_rows=True,
+                         align_cols=True):
+        out = np.zeros((self.Ntheta, rows, cols))
+        for ell in range(self.Ntheta):
+            nmin = self._nmin(ell)
+            n = self.Nr - nmin
+            if n <= 0:
+                continue
+            mat = build(ell, n)
+            if mat.size == 0:
+                continue
+            r0 = nmin if align_rows else 0
+            c0 = nmin if align_cols else 0
+            out[ell, r0:r0 + mat.shape[0], c0:c0 + mat.shape[1]] = mat
+        return out
+
+    @CachedMethod
+    def radial_forward_stack(self, regtotal, scale=1.0):
+        """(Ntheta, Nr, Ngr): grid -> aligned Zernike coefficients at
+        l = ell + regtotal (reference: core/transforms.py:1451)."""
+        Ngr = self.sub_grid_size(2, scale)
+        z, w = zernike.quadrature(3, Ngr, self.alpha)
+        extra = ((1 - z) / 2) ** self.k if self.k else 1.0
+
+        def build(ell, n):
+            l = ell + int(regtotal)
+            if l < 0:
+                return np.zeros((n, Ngr))
+            Q = zernike.polynomials(3, n, self.a_k, l, z)
+            Q = Q * w * extra
+            dN = l // 2
+            Q[max(Ngr - dN, 0):] = 0
+            return Q
+        return self._build_ell_stack(build, self.Nr, Ngr, align_cols=False)
+
+    @CachedMethod
+    def radial_backward_stack(self, regtotal, scale=1.0):
+        """(Ntheta, Ngr, Nr): coefficients -> grid values."""
+        Ngr = self.sub_grid_size(2, scale)
+        z, _ = zernike.quadrature(3, Ngr, self.alpha)
+
+        def build(ell, n):
+            l = ell + int(regtotal)
+            if l < 0:
+                return np.zeros((Ngr, n))
+            Q = zernike.polynomials(3, n, self.a_k, l, z)
+            dN = l // 2
+            Q[max(Ngr - dN, 0):] = 0
+            return Q.T
+        return self._build_ell_stack(build, Ngr, self.Nr, align_rows=False)
+
+    @CachedMethod
+    def dplus_stack(self, regtotal):
+        """D+ = d/dr - l/r at l = ell + regtotal, k -> k+1, problem units."""
+        def build(ell, n):
+            l = ell + int(regtotal)
+            if l < 0:
+                return np.zeros((n, n))
+            M = zernike.ladder_matrix(3, n, self.a_k, l, l + 1, l, +1)
+            return np.sqrt(2) * M / self.radius
+        return self._build_ell_stack(build, self.Nr, self.Nr)
+
+    @CachedMethod
+    def dminus_stack(self, regtotal):
+        """D- = d/dr + (l+1)/r at l = ell + regtotal, k -> k+1."""
+        def build(ell, n):
+            l = ell + int(regtotal)
+            if l < 1:
+                # l = 0: D- output degree -1 does not exist
+                return np.zeros((n, n))
+            M = zernike.ladder_matrix(3, n, self.a_k, l, l - 1, -(l + 1), +1)
+            return np.sqrt(2) * M / self.radius
+        return self._build_ell_stack(build, self.Nr, self.Nr)
+
+    @CachedMethod
+    def laplacian_reg_stack(self, regtotal):
+        """L = D-(l+1) @ D+(l), k -> k+2."""
+        up = self.dplus_stack(regtotal)
+        k1 = self.clone_with(k=self.k + 1)
+
+        def build_down(ell, n):
+            l = ell + int(regtotal)
+            if l < 0:
+                return np.zeros((n, n))
+            M = zernike.ladder_matrix(3, n, k1.a_k, l + 1, l, -(l + 2), +1)
+            return np.sqrt(2) * M / self.radius
+        down = self._build_ell_stack(build_down, self.Nr, self.Nr)
+        return np.einsum("gij,gjk->gik", down, up)
+
+    @CachedMethod
+    def interp_stack(self, regtotal, position):
+        """(Ntheta, 1, Nr): evaluate regtotal components at problem radius
+        `position` (per-ell rows: r = 0 keeps only l = 0)."""
+        r0 = self.radial_COV.native_coord(position)
+
+        def build(ell, n):
+            l = ell + int(regtotal)
+            if l < 0:
+                return np.zeros((1, n))
+            return zernike.interpolation_row(3, n, self.a_k, l, r0)
+        return self._build_ell_stack(build, 1, self.Nr, align_rows=False)
+
+    def lift_column(self, index):
+        col = np.zeros((self.Nr, 1))
+        col[index, 0] = 1.0
+        return col
+
+    @property
+    def constant_angular_mode_value(self):
+        return float(swsh.harmonics(self.Lmax, 0, 0, np.array([0.5]))[0, 0])
+
+    @CachedMethod
+    def radial_integration_row(self, power=2):
+        """(1, Nr): integral against r^power dr for the (m=0, ell=0,
+        regtotal=0) group, in problem units. Gauss-Jacobi with the
+        r^(power-1) envelope folded into the weight, exact for any
+        power > 0."""
+        if power == 2:
+            row = zernike.integration_row(3, self.Nr, self.a_k, 0)
+        else:
+            # int_0^1 Q_n(r) r^p dr = (1/4) int Q_n(z) ((1+z)/2)^((p-1)/2) dz
+            b_env = (power - 1) / 2
+            Nq = self.Nr + self.k + 4
+            z = jacobi_tools.build_grid(Nq, 0, b_env)
+            w = jacobi_tools.build_weights(Nq, 0, b_env)
+            Q = zernike.polynomials(3, self.Nr, self.a_k, 0, z)
+            row = ((Q * w) @ np.ones(Nq))[None, :] / 4
+        return row * self.radius ** (power + 1)
+
+    def radial_constant_column(self):
+        """(Nr, 1): level-k coefficients of the constant 1 at l = 0."""
+        Ngr = self.Nr + self.k + 2
+        z, w = zernike.quadrature(3, Ngr, self.alpha)
+        extra = ((1 - z) / 2) ** self.k if self.k else 1.0
+        Q = zernike.polynomials(3, self.Nr, self.a_k, 0, z)
+        col = (Q * w * extra) @ np.ones(Ngr)
+        return col[:, None]
+
+    def constant_component_descr(self, sub_axis, device):
+        if sub_axis == 0:
+            if device:
+                col = np.zeros((self.Nphi, 1))
+                col[0, 0] = 1.0
+                return ("full", col)
+            return ("blocks", self.azimuth_basis.constant_blocks())
+        if sub_axis == 1:
+            Y00 = self.constant_angular_mode_value
+            col = np.zeros((self.Ntheta, 1))
+            col[0, 0] = 1.0 / Y00
+            if device:
+                return ("full", col)
+            blocks = np.zeros((self.Ntheta, 1, 1))
+            blocks[0, 0, 0] = 1.0 / Y00
+            return ("blocks", blocks)
+        return ("full", self.radial_constant_column())
+
+    # ----------------------------------------------------------- transforms
+
+    def forward_transform(self, gdata, axis, scale, library=None,
+                          tensorsig=(), sub_axis=0):
+        if sub_axis in (0, 1):
+            return self.sphere_basis.forward_transform(
+                gdata, axis, scale, library, tensorsig=tensorsig,
+                sub_axis=sub_axis)
+        tdim = len(tensorsig)
+        rank = spherical_rank(tensorsig, self.cs)
+        out = gdata
+        if rank:
+            stack = q_stack(self.Ntheta, rank)
+            out = apply_regularity_recombination(out, tdim, axis - 1, stack,
+                                                 forward=True)
+        return self._radial_reg_apply(out, tdim, axis, rank, scale,
+                                      forward=True)
+
+    def backward_transform(self, cdata, axis, scale, library=None,
+                           tensorsig=(), sub_axis=0):
+        if sub_axis in (0, 1):
+            return self.sphere_basis.backward_transform(
+                cdata, axis, scale, library, tensorsig=tensorsig,
+                sub_axis=sub_axis)
+        tdim = len(tensorsig)
+        rank = spherical_rank(tensorsig, self.cs)
+        out = self._radial_reg_apply(cdata, tdim, axis, rank, scale,
+                                     forward=False)
+        if rank:
+            stack = q_stack(self.Ntheta, rank)
+            out = apply_regularity_recombination(out, tdim, axis - 1, stack,
+                                                 forward=False)
+        return out
+
+    def _radial_reg_apply(self, data, tdim, r_axis, rank, scale, forward):
+        """The radial transform: per regularity total one batched product
+        over the ell axis against its (Ntheta, out, in) stack (the
+        colatitude is the group axis, width 1; the host stacks are cached,
+        so each is uploaded once)."""
+        totals = reg_totals(rank)
+        ncomp = 3 ** rank
+        tshape = tuple(data.shape[:tdim])
+        flat = data.reshape((ncomp,) + tuple(data.shape[tdim:]))
+        colat_axis = r_axis - 1
+        a_groups = 1 + colat_axis - tdim
+        a_target = 1 + r_axis - tdim
+        if ncomp == 1:
+            stack = self.radial_forward_stack(0, scale) if forward \
+                else self.radial_backward_stack(0, scale)
+            out = apply_group_stack(flat, stack, a_groups, a_target, 1)
+            return out.reshape(tshape + tuple(out.shape[1:]))
+        pieces = [None] * ncomp
+        for R in np.unique(totals):
+            stack = self.radial_forward_stack(int(R), scale) if forward \
+                else self.radial_backward_stack(int(R), scale)
+            idx = [int(i) for i in np.flatnonzero(totals == R)]
+            # components gathered by integer views: an index array would
+            # be copied to the device, a host synchronization
+            sub = torch.stack([flat[i] for i in idx])
+            sub = apply_group_stack(sub, stack, a_groups, a_target, 1)
+            for j, i in enumerate(idx):
+                pieces[i] = sub[j]
+        out = torch.stack(pieces, dim=0)
+        return out.reshape(tshape + tuple(out.shape[1:]))
+
+    # ---------------------------------------------------- conversion terms
+
+    def conversion_terms(self, target, tensorsig, tshape):
+        """k -> k+dk conversion: per-(ell, regtotal) Zernike connection
+        stacks (reference: core/basis.py:4057 conversion_matrix)."""
+        if not isinstance(target, BallBasis) or target.shape != self.shape \
+                or target.radius != self.radius:
+            raise ValueError(f"No conversion from {self} to {target}.")
+        dk = target.k - self.k
+        if dk == 0:
+            return [(None, {})]
+        if dk < 0:
+            raise ValueError("Cannot convert to lower k.")
+        rank = spherical_rank(tensorsig, self.cs)
+        totals = reg_totals(rank)
+        ncomp = 3 ** rank
+        colat = self.first_axis + 1
+        r_axis = self.first_axis + 2
+        terms = []
+        for R in np.unique(totals):
+            sel = np.diag((totals == R).astype(float)) if ncomp > 1 else None
+            stack = self.conversion_reg_stack(int(R), int(dk))
+            terms.append((sel, {r_axis: ("gblocks", colat, stack)}))
+        return terms
+
+    @CachedMethod
+    def conversion_reg_stack(self, regtotal, dk):
+        def build(ell, n):
+            l = ell + int(regtotal)
+            if l < 0:
+                return np.zeros((n, n))
+            M = np.eye(n)
+            for dki in range(dk):
+                M = zernike.conversion_matrix(3, n, self.a_k + dki, l) @ M
+            return M
+        return self._build_ell_stack(build, self.Nr, self.Nr)
+
+    # ------------------------------------------------------- NCC products
+
+    def scalar_radial_coeffs(self, profile_grid_values, l_env=0):
+        """Project a radial profile (on the scale-1 grid) onto Zernike
+        coefficients at envelope degree l_env (the all-radial component of
+        a rank-r NCC carries an r^r envelope, so odd profiles like r*er
+        stay exact; reference: core/basis.py:4110 b_ncc = regtotal +
+        1/2)."""
+        profile = np.asarray(profile_grid_values, dtype=np.float64)
+        Ngr = profile.shape[-1]
+        z, w = zernike.quadrature(3, Ngr, self.alpha)
+        extra = ((1 - z) / 2) ** self.k if self.k else 1.0
+        Q = zernike.polynomials(3, self.Nr, self.a_k, l_env, z)
+        return (Q * (w * extra)) @ profile
+
+    def ncc_radial_matrix(self, f_radial_coeffs, f_k, R_in, R_out, ell,
+                          k_out=0, l_env=0):
+        """(Nr, Nr): per-(ell, regularity) multiplication by the radial NCC
+        with level-f_k l=0 coefficients, mapping regtotal R_in components
+        at harmonic ell to R_out components at level k_out
+        (reference: core/basis.py:4101 _last_axis_component_ncc_matrix)."""
+        nmin = self._nmin(ell)
+        n = self.Nr - nmin
+        l_in = ell + int(R_in)
+        l_out = ell + int(R_out)
+        if n <= 0 or l_in < 0 or l_out < 0:
+            return np.zeros((self.Nr, self.Nr))
+        f_coeffs = np.asarray(f_radial_coeffs, dtype=np.float64)
+        Nf = f_coeffs.shape[-1]
+        a_f = self.alpha + f_k
+
+        def values(z):
+            fvals = f_coeffs @ zernike.polynomials(3, Nf, a_f, l_env, z)
+            return fvals * zernike.polynomials(3, n, self.a_k, l_in, z)
+
+        M = zernike._project(3, n, self.alpha + k_out, l_out, values, n,
+                             extra=Nf + 16)
+        out = np.zeros((self.Nr, self.Nr))
+        out[nmin:, nmin:] = M
+        return out
+
+    def ncc_radial_pair_matrix(self, f_radial_coeffs, f_k, f_lenv, t_in,
+                               t_out, ell_in, ell_out, k_out=0):
+        """
+        (Nr, Nr): multiplication by one angular mode's radial profile
+        (Zernike coefficients `f_radial_coeffs` at envelope degree
+        `f_lenv`, level k of this basis), mapping regtotal-`t_in`
+        components at harmonic `ell_in` to regtotal-`t_out` components at
+        harmonic `ell_out`, level `k_out`: the ell-coupled generalization
+        of `ncc_radial_matrix` for theta-dependent NCC products
+        (reference: the l-coupled Zernike Clenshaw couplings of
+        core/basis.py:4101 + core/arithmetic.py:359-406).
+        """
+        nmin_in = self._nmin(int(ell_in))
+        nmin_out = self._nmin(int(ell_out))
+        n_in = self.Nr - nmin_in
+        n_out = self.Nr - nmin_out
+        l_in = int(ell_in) + int(t_in)
+        l_out = int(ell_out) + int(t_out)
+        if n_in <= 0 or n_out <= 0 or l_in < 0 or l_out < 0:
+            return np.zeros((self.Nr, self.Nr))
+        f_coeffs = np.asarray(f_radial_coeffs)
+        if not np.iscomplexobj(f_coeffs):
+            f_coeffs = f_coeffs.astype(np.float64)
+        Nf = f_coeffs.shape[-1]
+
+        def values(z):
+            fvals = f_coeffs @ zernike.polynomials(3, Nf, self.alpha + f_k,
+                                                   int(f_lenv), z)
+            return fvals * zernike.polynomials(3, n_in, self.a_k, l_in, z)
+
+        M = zernike._project(3, n_out, self.alpha + k_out, l_out, values,
+                             n_in, extra=Nf + self.Nr + 16)
+        out = np.zeros((self.Nr, self.Nr), dtype=M.dtype)
+        out[nmin_out:, nmin_in:] = M
+        return out
+
+
+# ----------------------------------------------------------------------
 # Spherical calculus operators (regularity components, ell-diagonal)
 
 class SphericalEllOperator(LinearOperator):
-    """Base for ell-diagonal spherical operators over the shell basis
-    (dedalus_tpu/core/spherical3d.py:932; reference:
+    """Base for ell-diagonal spherical operators over the shell and ball
+    bases (dedalus_tpu/core/spherical3d.py:932; reference:
     core/operators.py:3078 SphericalEllOperator)."""
 
     def _basis(self, operand=None):
@@ -699,7 +1215,7 @@ class SphericalTrace(SphericalEllOperator):
 
 class SphericalTransposeComponents(LinearOperator):
     """
-    Index transpose for tensors on shell (regularity-component)
+    Index transpose for tensors on shell/ball (regularity-component)
     bases. The regularity intertwiner Q(ell) is NOT a kron over tensor
     indices, so a plain component permutation is wrong; the transpose in
     coefficient space is the per-ell sandwich Q(ell)^T P_swap Q(ell)
@@ -968,7 +1484,7 @@ class SphericalComponent(LinearOperator):
     Radial/angular component extraction on sphere-basis (S2 boundary)
     fields, where spin storage makes the selection a constant matrix in both
     layouts (reference: core/operators.py:2160-2283 RadialComponent/
-    AngularComponent). Interior shell fields store regularity
+    AngularComponent). Interior shell/ball fields store regularity
     components, so LHS extraction there is not a constant selection; use it
     on boundary fields or on the RHS.
     """
@@ -992,7 +1508,7 @@ class SphericalComponent(LinearOperator):
             if getattr(b, "regularity", False):
                 raise ValueError(
                     "Radial/angular extraction has no constant coefficient "
-                    "matrix on shell interiors (regularity storage); "
+                    "matrix on shell/ball interiors (regularity storage); "
                     "apply it to boundary (S2) fields or on the RHS.")
         self.cs = cs
         self.domain = operand.domain

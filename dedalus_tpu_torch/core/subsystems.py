@@ -826,6 +826,157 @@ class MatrixStructure:
         return self
 
 
+    # ------------------------------------------------ pinned-base repair
+
+    def _pinned_cols(self):
+        return self.col_perm[self.pinned_positions]
+
+    def repair_pins(self, union_pat, qual_pat, row_valid_all, col_valid_all,
+                    group_matrix, groups):
+        """
+        One pin swap toward a nonsingular pinned base on `groups`, the
+        groups whose factorization floored a pivot; `group_matrix(g)` is
+        group g's factored matrix (scipy sparse). The Woodbury solve needs
+        the pinned base B~ (pinned rows replaced by identity at their
+        positions) nonsingular, that is the block A[R, U] of the valid
+        unpinned rows R and columns U. The matching of `finalize`
+        guarantees it structurally, not numerically: the stress-free ball
+        of examples/internally_heated_convection.py pins one pressure
+        mode too many in every group of ell >= 1.
+
+        A swap pins a matched column c_in and releases a pinned column
+        c_out with the same validity in every group, so the pins still
+        pair with rows by validity signature. With v and z the right and
+        left singular vectors of the smallest singular value of A[R, U],
+        the swapped block is nonsingular where |v[c_in]| |z . A[R, c_out]|
+        (unit vectors, the column normalised) is nonzero: it counts as
+        such above the factor's pivot floor S * eps. Swaps are ranked by
+        how many of the groups' validity patterns they repair, then by
+        their smallest score there. The first whose rows re-match along
+        an augmenting path of qualified, validity-aligned entries inside
+        the current band is applied, so kl, ku, q and NB stay as they
+        are. Returns whether a swap was made.
+        """
+        S = self.S
+        pinned = self._pinned_cols()
+        reps = {}
+        for g in groups:
+            reps.setdefault((row_valid_all[g].tobytes(),
+                             col_valid_all[g].tobytes()), int(g))
+        scores = []
+        floor = S * np.finfo(np.float64).eps
+        for g in reps.values():
+            rows = row_valid_all[g].copy()
+            rows[self.pinned_rows] = False
+            cols = col_valid_all[g].copy()
+            cols[pinned] = False
+            A = sp.csr_matrix(group_matrix(g))[rows]
+            block = A[:, cols].toarray()
+            if not block.size:
+                continue
+            u, s, vh = np.linalg.svd(block)
+            if s[-1] > floor * s[0]:
+                continue
+            v = np.zeros(S)
+            v[cols] = np.abs(vh[-1])
+            P = A[:, pinned].toarray()
+            coupling = np.abs(u[:, -1].conj() @ P)
+            scores.append(np.outer(v, coupling / np.maximum(
+                np.linalg.norm(P, axis=0), np.finfo(np.float64).tiny)))
+        if not scores:
+            return False
+        scores = np.stack(scores)                            # (reps, S, t)
+        good = scores > floor
+        n_fixed = good.sum(axis=0)
+        worst = np.where(good, scores, np.inf).min(axis=0)
+        sig = np.unique(col_valid_all.T, axis=0, return_inverse=True)[1]
+        sig = np.ravel(sig)
+        n_fixed[sig[:, None] != sig[pinned][None, :]] = 0
+        order = np.lexsort((-worst.ravel(), -n_fixed.ravel()))
+        pos_col = np.argsort(self.col_perm)
+        qual = sp.csr_matrix(qual_pat)
+        pu = sp.csr_matrix(union_pat)
+        lo = np.full(S, S, dtype=int)
+        hi = np.full(S, -1, dtype=int)
+        for r in range(S):
+            c = pu.indices[pu.indptr[r]:pu.indptr[r + 1]]
+            if len(c):
+                lo[r], hi[r] = pos_col[c].min(), pos_col[c].max()
+        row_sig = [row_valid_all[:, r].tobytes() for r in range(S)]
+        col_sig = [col_valid_all[:, c].tobytes() for c in range(S)]
+        pinned_set = set(int(c) for c in pinned)
+        for flat in order:
+            if not n_fixed.flat[flat]:
+                break
+            c_in, k = divmod(int(flat), len(pinned))
+            c_out = int(pinned[k])
+            path = self._augmenting_path(c_in, c_out, qual, pos_col, lo, hi,
+                                         row_sig, col_sig, pinned_set)
+            if path is not None:
+                self._apply_swap(path, c_in, c_out, pos_col)
+                return True
+        return False
+
+    def _augmenting_path(self, c_in, c_out, qual, pos_col, lo, hi, row_sig,
+                         col_sig, pinned):
+        """Rows re-matched so that c_in is freed and c_out taken: a BFS
+        from c_in's row over qualified, validity-aligned entries whose new
+        position keeps the row's entries inside the band. Returns
+        [(row, new column), ...] or None."""
+        from collections import deque
+        match_row = {}
+        matched = np.ones(self.S, dtype=bool)
+        matched[self.pinned_rows] = False
+        for r in np.flatnonzero(matched):
+            match_row[int(self.col_perm[self.row_pos[r]])] = int(r)
+        start = match_row.get(c_in)
+        if start is None:
+            return None
+        parent = {start: None}
+        queue = deque([start])
+        while queue:
+            r = queue.popleft()
+            for c in qual.indices[qual.indptr[r]:qual.indptr[r + 1]]:
+                c = int(c)
+                if c == c_in or row_sig[r] != col_sig[c]:
+                    continue
+                p = pos_col[c]
+                if hi[r] - p > self.ku or p - lo[r] > self.kl:
+                    continue
+                if c == c_out:
+                    path = [(r, c)]
+                    while parent[r] is not None:
+                        r, c_prev = parent[r]
+                        path.append((r, c_prev))
+                    return path
+                if c in pinned:
+                    continue
+                r2 = match_row.get(c)
+                if r2 is None or r2 in parent:
+                    continue
+                parent[r2] = (r, c)
+                queue.append(r2)
+        return None
+
+    def _apply_swap(self, path, c_in, c_out, pos_col):
+        """Re-place the rows of `path` and move c_out's pin to c_in; the
+        rows that moved are kept in `repaired_rows`."""
+        p_in, p_out = pos_col[c_in], pos_col[c_out]
+        for r, c in path:
+            self.row_pos[r] = pos_col[c]
+        k = int(np.flatnonzero(self.pinned_positions == p_out)[0])
+        self.row_pos[self.pinned_rows[k]] = p_in
+        self.repaired_rows = sorted(set(getattr(self, "repaired_rows", []))
+                                    | {int(r) for r, _ in path}
+                                    | {int(self.pinned_rows[k])})
+        self.pinned_positions = self.pinned_positions.copy()
+        self.pinned_positions[k] = p_in
+        order = np.argsort(self.pinned_positions)
+        self.pinned_positions = self.pinned_positions[order]
+        self.pinned_rows = self.pinned_rows[order]
+        self.row_perm = np.argsort(self.row_pos)
+
+
 class PatternAccumulator:
     """
     Accumulates per-group sparsity evidence for the structural analysis:

@@ -242,9 +242,11 @@ class MultistepIMEX(BlockStepper):
         # refactor on the leading coefficients (the JAX package's key)
         key = (round(float(a[0]), 14), round(float(b[0]), 14))
         if key != self._lhs_key:
-            self._lhs_key = key
-            self._lhs_aux = solver.ops.factor_lincomb(
-                float(a[0]), solver.M_mat, float(b[0]), solver.L_mat)
+            aux = solver.factor_checked(
+                lambda: solver.ops.factor_lincomb(
+                    float(a[0]), solver.M_mat, float(b[0]), solver.L_mat),
+                {"M": float(a[0]), "L": float(b[0])})
+            self._lhs_key, self._lhs_aux = key, aux
             self.factorizations += 1
         self._abc = (a, b, c)
 
@@ -467,9 +469,10 @@ class RungeKuttaIMEX(BlockStepper):
 
     def _factor(self, dt):
         solver = self.solver
-        ops = solver.ops
-        auxs = [ops.factor_lincomb(1.0, solver.M_mat, dt * h, solver.L_mat)
-                for h in self.uniq_H_diag]
+        auxs = [solver.factor_checked(
+            lambda: solver.ops.factor_lincomb(1.0, solver.M_mat, dt * h,
+                                              solver.L_mat),
+            {"M": 1.0, "L": dt * h}) for h in self.uniq_H_diag]
         self.factorizations += len(auxs)
         return [auxs[j] for j in self.stage_slot]
 

@@ -21,7 +21,9 @@ polar examples: centrifugal convection in an annulus
 spherical shell (examples/shell_convection.py), the progression's
 rotating shell convection (benchmarks/progression.py build_rotconv_ivp)
 and the rotating-convection onset EVP on a complex shell
-(examples/rotating_convection.py).
+(examples/rotating_convection.py); and the ball: internally heated
+convection (examples/internally_heated_convection.py) and the Lane-Emden
+NLBVP (examples/lane_emden.py).
 Each builds on `device` (default `cuda`; pass "cpu" to run on the host).
 """
 
@@ -790,3 +792,104 @@ def build_rotating_convection_evp(Nphi=28, Ntheta=64, Nr=64,
     problem.add_equation("integ(p) = 0")
     solver = problem.build_solver()
     return solver, ROTATING_CONVECTION_TARGET[stress_free]
+
+
+def build_ball_convection(Nphi, Ntheta, Nr, dtype=np.float64, matsolver=None,
+                          device=None):
+    """
+    Internally heated Boussinesq convection in a full ball with stress-free
+    boundaries: the equations, bases, taus and initial state of
+    examples/internally_heated_convection.py (reference:
+    examples/ivp_ball_internally_heated_convection), without its loop.
+    BallBasis (Nphi, Ntheta, Nr) of radius 1, dealias 3/2, SBDF2, Rayleigh
+    1e4, Prandtl 1, T_source 6; the radial NCC r_vec*T keeps one pencil per
+    (m, ell). The example's size is 64 x 32 x 48 (16 x 8 x 12 with
+    --quick). `matsolver` as for build_rb3d (None: the configured
+    MATRIX_SOLVER; "banded" forces the banded path at a size 'auto'
+    solves dense). Returns (solver, dt, flow): the example's timestep 0.01
+    and its flow property u2 = u@u at cadence 10.
+    """
+    import dedalus_tpu_torch.public as d3
+    Rayleigh, Prandtl = 1e4, 1
+    dealias, timestep = 3 / 2, 0.01
+    coords = d3.SphericalCoordinates("phi", "theta", "r")
+    dist = d3.Distributor(coords, dtype=dtype, device=device)
+    ball = d3.BallBasis(coords, shape=(Nphi, Ntheta, Nr), radius=1,
+                        dealias=dealias, dtype=dtype)
+    sphere = ball.surface
+    u = dist.VectorField(coords, name="u", bases=ball)
+    p = dist.Field(name="p", bases=ball)
+    T = dist.Field(name="T", bases=ball)
+    tau_p = dist.Field(name="tau_p")
+    tau_u = dist.VectorField(coords, name="tau_u", bases=sphere)
+    tau_T = dist.Field(name="tau_T", bases=sphere)
+    phi, theta, r = dist.local_grids(ball)
+    r_vec = dist.VectorField(coords, name="r_vec", bases=ball)
+    r_vec["g"][2] = np.broadcast_to(np.asarray(r),
+                                    np.asarray(r_vec["g"])[2].shape)
+    T_source = 6
+    kappa = (Rayleigh * Prandtl) ** (-1 / 2)
+    nu = (Rayleigh / Prandtl) ** (-1 / 2)
+    lift = lambda A: d3.Lift(A, ball, -1)  # noqa: E731
+    strain_rate = d3.grad(u) + d3.trans(d3.grad(u))
+    shear_stress = d3.angular(d3.radial(strain_rate(r=1), index=1))
+    problem = d3.IVP([p, u, T, tau_p, tau_u, tau_T], namespace=locals())
+    problem.add_equation("div(u) + tau_p = 0")
+    problem.add_equation("dt(u) - nu*lap(u) + grad(p) - r_vec*T "
+                         "+ lift(tau_u) = - cross(curl(u),u)")
+    problem.add_equation("dt(T) - kappa*lap(T) + lift(tau_T) "
+                         "= - u@grad(T) + kappa*T_source")
+    problem.add_equation("shear_stress = 0")  # stress free
+    problem.add_equation("radial(u(r=1)) = 0")  # no penetration
+    problem.add_equation("T(r=1) = 0")
+    problem.add_equation("integ(p) = 0")  # pressure gauge
+    kw = {"matsolver": matsolver} if matsolver else {}
+    solver = problem.build_solver(d3.SBDF2, **kw)
+    T.fill_random("g", seed=42, distribution="normal", scale=0.01)
+    T["g"] += 1 - np.asarray(r) ** 2  # conductive profile for T_source = 6
+    flow = d3.GlobalFlowProperty(solver, cadence=10)
+    flow.add_property(u @ u, name="u2")
+    return solver, timestep, flow
+
+
+# Boyd's stellar radii R = f(0)^((n-1)/2) of the Lane-Emden polytropes
+# (examples/lane_emden.py)
+LANE_EMDEN_R = {0.0: np.sqrt(6), 0.5: 2.752698054065, 1.0: np.pi,
+                1.5: 3.65375373621912608, 2.0: 4.3528745959461246769735700,
+                2.5: 5.355275459010779, 3.0: 6.896848619376960375454528,
+                3.25: 8.018937527, 3.5: 9.535805344244850444,
+                4.0: 14.971546348838095097611066,
+                4.5: 31.836463244694285264}
+
+
+def build_lane_emden(Nr=64, n=3.0, device=None):
+    """
+    The Lane-Emden equation lap(f) = -f^n, f(r=1) = 0 in the ball (NLBVP
+    with floating amplitude): a copy of examples/lane_emden.py (reference:
+    examples/nlbvp_ball_lane_emden). BallBasis (4, 2, Nr) of radius 1,
+    dealias 2, one tau lifted to the ball's last mode, from the example's
+    guess f = R0^(2/(n-1)) (1 - r^2)^2 with R0 = 5. Returns (solver, f,
+    radius) with radius() the stellar radius f(0)^((n-1)/2) of the
+    current iterate (compare with LANE_EMDEN_R[n]).
+    """
+    import dedalus_tpu_torch.public as d3
+    coords = d3.SphericalCoordinates("phi", "theta", "r")
+    dist = d3.Distributor(coords, dtype=np.float64, device=device)
+    ball = d3.BallBasis(coords, (4, 2, Nr), radius=1, dtype=np.float64,
+                        dealias=2)
+    f = dist.Field(name="f", bases=ball)
+    tau = dist.Field(name="tau", bases=ball.surface)
+    lift = lambda A: d3.Lift(A, ball, -1)  # noqa: E731
+    problem = d3.NLBVP([f, tau], namespace=locals())
+    problem.add_equation("lap(f) + lift(tau) = - f**n")
+    problem.add_equation("f(r=1) = 0")
+    phi, theta, r = dist.local_grids(ball)
+    R0 = 5
+    f["g"] = R0 ** (2 / (n - 1)) * (1 - np.asarray(r) ** 2) ** 2
+    solver = problem.build_solver()
+    f0 = d3.Interpolate(f, coords["r"], 0.0)
+
+    def radius():
+        return float(np.asarray(f0.evaluate()["g"]).ravel()[0]) \
+            ** ((n - 1) / 2)
+    return solver, f, radius

@@ -55,9 +55,9 @@ def advective_cfl_frequency(u, ug):
     *AdvectiveCFL.cfl_spacing): sum_i |u_i| / dx_i with Cartesian
     spacings, |u_phi| / dphi + |u_r| / dr on a disk or annulus
     (components (phi, r)), |u_angular| k / R on the sphere with
-    k = sqrt(Lmax (Lmax + 1)), and on the shell |u_angular| k / r +
-    |u_r| / dr (components (phi, theta, r);
-    dedalus_tpu/extras/flow_tools.py:98-112). The direct-product
+    k = sqrt(Lmax (Lmax + 1)), on the shell |u_angular| k / r + |u_r| / dr
+    and on the ball |u_angular| k / R + |u_r| / dr (components (phi,
+    theta, r); dedalus_tpu/extras/flow_tools.py:98-120). The direct-product
     spacings come with the cylinder.
     """
     from ..core.coords import (CartesianCoordinates, Coordinate,
@@ -72,18 +72,19 @@ def advective_cfl_frequency(u, ug):
         return torch.sqrt(ug[0] ** 2 + ug[1] ** 2) * (k / basis.radius)
     if isinstance(cs, SphericalCoordinates):
         basis = u.domain.bases[dist.get_axis(cs.coords[2])]
-        if not hasattr(basis, "radii"):
-            from ..core.spherical3d import BALL_PENDING
-            raise NotImplementedError(BALL_PENDING)
         r_axis = basis.first_axis + 2
         r = np.ravel(basis.global_grids(basis.dealias)[2])
         Lmax = basis.shape[1] - 1
         k = np.sqrt(Lmax * (Lmax + 1)) if Lmax > 0 else 0.0
-        # the angular spacing r / k, the radial one the dealias-rescaled
-        # gradient of the grid
+        # the angular spacing r / k on the shell, R / k on the ball; the
+        # radial one the dealias-rescaled gradient of the grid
         total = torch.sqrt(ug[0] ** 2 + ug[1] ** 2)
-        total = total * _device_profile(k / r, r_axis, dist.dim, ug) if k \
-            else total * 0.0
+        if not k:
+            total = total * 0.0
+        elif hasattr(basis, "radii"):
+            total = total * _device_profile(k / r, r_axis, dist.dim, ug)
+        else:
+            total = total * (k / basis.radius)
         dr = basis.dealias[2] * (np.gradient(r) if r.size > 1
                                  else np.array([np.inf]))
         return total + ug[2].abs() / _device_profile(dr, r_axis, dist.dim,

@@ -11,7 +11,7 @@ from .core.basis import (Jacobi, ChebyshevT, Legendre, RealFourier,
                          ComplexFourier, Fourier)
 from .core.polar import DiskBasis, AnnulusBasis
 from .core.sphere import SphereBasis, MulCosine
-from .core.spherical3d import ShellBasis
+from .core.spherical3d import ShellBasis, BallBasis
 from .core.field import Field
 from .core.problems import IVP, LBVP, NLBVP, EVP
 from .core.operators import (
@@ -43,7 +43,7 @@ div = Divergence
 lap = Laplacian
 curl = Curl
 trace = Trace
-transpose = TransposeComponents
+transpose = trans = TransposeComponents
 integ = Integrate
 ave = Average
 skew = Skew

@@ -17,8 +17,14 @@ one assembled system, separately from the check that they assemble the
 same system. The pencil layout is the same for every geometry the port
 carries, so a polar (disk or annulus) solver's dense system carries as a
 Cartesian one's does (tests/test_torch_disk.py, test_torch_annulus.py),
-and so does a shell's: its regularity-ordered tensor components and its
-(m, ell) group order are the JAX package's (tests/test_torch_shell.py).
+and so does a shell's or a ball's: their regularity-ordered tensor
+components and (m, ell) group order are the JAX package's
+(tests/test_torch_shell.py, tests/test_torch_ball.py; the ball's
+triangular truncation is in the validity masks, which both packages
+build alike). A banded system carries its structure as given: the JAX
+package's structure for the stress-free ball leaves the pinned base
+singular (the port's first factorization repairs its own structure,
+SolverBase.factor_checked), so that system carries dense.
 """
 
 import types
@@ -70,6 +76,9 @@ def install_system(solver, structure_fields, matrices, X=None):
                             for name, arrs in matrices.items()}
     # the ops under the plans the solver was built with
     solver._install_plan(solver._fusion_plan, solver._solve_plan)
+    # a carried structure is taken as given: its first factorization
+    # repairs no pins
+    solver._pin_repair = None
     solver._install_carried()
     if X is not None:
         install_state(solver, X)

@@ -40,7 +40,14 @@ def test_scan_covers_the_package():
                  "dedalus_tpu_torch/libraries/sphere.py",
                  "dedalus_tpu_torch/core/stepgraph.py",
                  "dedalus_tpu_torch/core/spherical3d.py",
-                 "dedalus_tpu_torch/libraries/spin_intertwiners.py"):
+                 "dedalus_tpu_torch/libraries/spin_intertwiners.py",
+                 "dedalus_tpu_torch/libraries/zernike.py",
+                 "dedalus_tpu_torch/core/arithmetic.py",
+                 "dedalus_tpu_torch/core/subsystems.py",
+                 "dedalus_tpu_torch/core/solvers.py",
+                 "dedalus_tpu_torch/extras/flow_tools.py",
+                 "dedalus_tpu_torch/extras/bench_problems.py",
+                 "dedalus_tpu_torch/tools/carry.py"):
         assert must in names
 
 
@@ -55,6 +62,21 @@ def test_shell_public_api_without_jax():
             "SphericalEllProduct); "
             "from dedalus_tpu_torch.core import spherical3d; "
             "from dedalus_tpu_torch.libraries import spin_intertwiners; "
+            "assert 'jax' not in sys.modules, 'jax imported'")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True)
+
+
+def test_ball_public_api_without_jax():
+    """The ball's public names (BallBasis, its build functions and the Zernike
+    library) import in a fresh interpreter with no jax module loaded."""
+    import subprocess
+    import sys
+    code = ("import sys; "
+            "from dedalus_tpu_torch.public import (SphericalCoordinates, "
+            "BallBasis, trans, Lift, NLBVP); "
+            "from dedalus_tpu_torch.extras.bench_problems import ("
+            "build_ball_convection, build_lane_emden); "
+            "from dedalus_tpu_torch.libraries import zernike; "
             "assert 'jax' not in sys.modules, 'jax imported'")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True)
 

@@ -65,7 +65,11 @@ def test_dispatch_uses_plain_on_cpu():
 # NB = 342, G = 1024: a chain of 683 tiny operators per group)
 CARD_SHAPES = [(5, 7, 32, 3), (3, 2, 32, 1), (4, 9, 17, 1), (4, 9, 17, 16),
                (2, 5, 64, 1), (2, 5, 64, 16), (200, 33, 32, 1), (6, 12, 8, 2),
-               (1024, 342, 6, 1)]
+               (1024, 342, 6, 1),
+               # the ball's shapes: internally heated convection 16x8x12
+               # forced banded, and 64x32x48 under 'auto' with its
+               # Woodbury form (42 pins)
+               (64, 5, 32, 1), (1024, 16, 32, 1), (1024, 16, 32, 42)]
 
 
 @pytest.mark.cuda
@@ -492,6 +496,37 @@ def test_polar_ivp_on_card_matches_cpu(build, held, others):
         err = np.max(np.abs(card[name] - cpu[name])) / scale
         bound = 1e-12 if name in held else others
         assert bound is None or err <= bound, (name, err)
+
+
+@pytest.mark.cuda
+def test_ball_banded_on_card_matches_cpu():
+    """build_ball_convection(16, 8, 12) forced banded (q = 32, NB = 5, 18
+    pins; its pinned base repaired by one swap at the first
+    factorization) on the card and on the CPU: 10 SBDF2 steps, every
+    field within 1e-12 of the state's largest entry, the card's run
+    through the kernel, no floored pivot."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    from dedalus_tpu_torch.extras.bench_problems import build_ball_convection
+    out = {}
+    for device in ("cuda", "cpu"):
+        before = tfused.LAUNCHES["banded_subst"]
+        solver, dt, _ = build_ball_convection(16, 8, 12, matsolver="banded",
+                                              device=device)
+        assert (solver.ops.q, solver.ops.NB, solver.ops.t) == (32, 5, 18)
+        for _ in range(10):
+            solver.step(dt)
+        launched = tfused.LAUNCHES["banded_subst"] - before
+        assert launched > 0 if device == "cuda" else launched == 0
+        assert solver.structure.pin_swaps == 1
+        assert int(solver.floored_pivots.sum()) == 0
+        assert bool(torch.isfinite(solver.X).all())
+        out[device] = ({v.name: np.array(v["c"]) for v in solver.variables},
+                       np.abs(solver.X.cpu().numpy()).max())
+    (card, _), (cpu, scale) = out["cuda"], out["cpu"]
+    for name in cpu:
+        err = np.max(np.abs(card[name] - cpu[name])) / scale
+        assert err <= 1e-12, (name, err)
 
 
 def test_transpose_dispatch_uses_plain_on_cpu():

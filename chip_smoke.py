@@ -273,10 +273,36 @@ Phases (each prints its own lines; any failure exits non-zero):
  21. Both kernels past q = 128 against their plain versions at random
      operators of LARGE_Q_SHAPES (q = 232 and 512) in f64, f32,
      complex128, complex64 and bf16 (each with its error, warm and cold
-     ms, byte bound, torch.sum over the same bytes, plain ms); the kernels
-     line (banded_subst, banded_subst_bf16, banded_subst_T,
-     banded_subst_T_bf16, each launched on some path of this run), the
-     card line, and the result line.
+     ms, byte bound, torch.sum over the same bytes, plain ms).
+ 22. The cylinder (dense: no kernel; each cell runs with the kernel's
+     counts set to 0 just before and read just after, and they must stay
+     0). pipe_flow64x64x48, a periodic pipe through
+     extras/bench_problems.py build_pipe_flow (DirectProduct(z, (phi,
+     r)): RealFourier 64 x DiskBasis 64x48, R = 1, length 10, Re = 2000,
+     dealias 3/2, RK222, the axial force 4 nu that holds w = 1 - r^2,
+     from it plus a seeded 1e-3 perturbation), the slice's main path:
+     'auto' tries the banded path and is refused (the band is too wide,
+     as in the JAX package), so it is dense with pencils (1024, 784),
+     asserted with the reason. Card vs CPU at 8x8x12 after 20 steps: u to
+     1e-12 of the state, p and the taus to PIPE_ALGEBRAIC_BOUND. Then
+     build (its phases, the dense store's GB, the host's RSS), the
+     factoring first step and PIPE_STEPS steps at the example's CFL
+     (safety 0.4, cadence 10, max_dt 5e-3), no host sync in a steady
+     step, steps/s, step_many bit-equal to the loop over PIPE_BLOCK steps
+     (steps/s of both, no host sync in a replayed block, idle share,
+     kernels per step and the TRSM kernels' share of each), no slip
+     within 1e-10 of max|u|, div(u) + tau_p and |integ(p)| within 1e-10,
+     the mean axial velocity within 1% of the laminar 1/2, the own peak
+     under 80 GB, one factor timed alone, the dense breakdown.
+     examples/cylinder_diffusion.py at its 16x16x32 (200 RK443 steps at
+     2e-4, the exact decay within 1e-6); the Poisson LBVP in a
+     cylindrical annulus (f64 and complex128) card vs CPU to 1e-12 and
+     within 1e-10 of the exact solution; examples/pipe_flow.py at Nr = 64
+     (the m = 1 eigensolve on the host, the mode nearest -0.0227050 -
+     0.9514810i within 1e-4).
+     Then the kernels line (banded_subst, banded_subst_bf16,
+     banded_subst_T, banded_subst_T_bf16, each launched on some path of
+     this run), the card line, and the result line.
 
 Each phase prints its seconds and one JSON record on its own line.
 
@@ -401,6 +427,20 @@ BALL_STEPS = 20
 LANE_EMDEN_NR = 64
 LANE_EMDEN_N = 3.0
 LANE_EMDEN_TOL = 1e-10
+# phase 22, the cylinder: a periodic pipe (R = 1, length 10, Re = 2000;
+# bench_problems.build_pipe_flow) at 64x64x48, dense under 'auto' (the
+# banded attempt refused: the band is too wide, as in the JAX package);
+# 20 CFL steps, then a step_many block of 10; card vs CPU at 8x8x12;
+# examples/cylinder_diffusion.py at its own size and steps; the pipe-flow
+# EVP of examples/pipe_flow.py at its Nr = 64
+PIPE_SIZE = (64, 64, 48)
+PIPE_PENCILS = [1024, 784]
+PIPE_SMALL = (8, 8, 12)
+PIPE_STEPS = 20
+PIPE_BLOCK = 10
+PIPE_ALGEBRAIC_BOUND = 1e-10
+DIFFUSION_STEPS = 200
+PIPE_EVP_NR = 64
 RESULTS = {}
 
 
@@ -1423,6 +1463,20 @@ def reset_launches():
     from dedalus_tpu_torch.core import fusedstep
     for name in fusedstep.LAUNCHES:
         fusedstep.LAUNCHES[name] = 0
+
+
+def dense_path(path, run):
+    """Run a path that takes the dense solve with the substitution
+    kernel's count set to 0 just before it; record the count read just
+    after, which must stay 0."""
+    from dedalus_tpu_torch.core import fusedstep
+    reset_launches()
+    rec = run()
+    n = sum(fusedstep.LAUNCHES.values())
+    RESULTS.setdefault("dense_path_launches", {})[path] = n
+    if n:
+        fail(f"the dense {path} path launched the banded kernel {n} times")
+    return rec
 
 
 def step_many_check(label, solver, dt, n, prof_steps):
@@ -2789,6 +2843,252 @@ def complex_ball_phase():
     return rec
 
 
+def host_rss_GB():
+    """The resident set size of this process in GB, from /proc/self/statm."""
+    import os
+    with open("/proc/self/statm") as f:
+        pages = int(f.read().split()[1])
+    return pages * os.sysconf("SC_PAGE_SIZE") / 1e9
+
+
+class RssPeak:
+    """A thread that samples host_rss_GB every `period` seconds while the
+    `with` block runs; `peak_GB` is the largest sample (the process's
+    getrusage high-water mark is set by whichever earlier phase peaked)."""
+
+    def __init__(self, period=0.01):
+        self.period = period
+        self.peak_GB = 0.0
+
+    def _poll(self):
+        while not self._stop.wait(self.period):
+            self.peak_GB = max(self.peak_GB, host_rss_GB())
+
+    def __enter__(self):
+        import threading
+        self.peak_GB = host_rss_GB()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._poll, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak_GB = max(self.peak_GB, host_rss_GB())
+
+
+def pipe_checks(label, solver):
+    """A finite state, no slip within 1e-10 of max|u|, div(u) + tau_p on
+    the grid within 1e-10 (its rows of L X recorded), |integ(p)| within
+    1e-10, and the mean axial velocity finite and within 1% of the
+    laminar profile's 1/2."""
+    import numpy as np
+    import torch
+    import dedalus_tpu_torch.public as d3
+    if not bool(torch.isfinite(solver.X).all()):
+        fail(f"{label}: non-finite state")
+    u, p, tau_u, tau_p = solver.variables
+    c = u.tensorsig[0]
+    bz, disk = u.domain.bases[:2]
+    R = disk.radius
+    ez = c.unit_vector_fields(u.dist)[0]
+    volume = np.pi * R ** 2 * bz.length
+    wall = float(np.abs(np.array(u(r=R).evaluate()["g"])).max())
+    errs = {
+        "div(u)+tau_p": float(np.abs(np.array(
+            (d3.div(u) + tau_p).evaluate()["g"])).max()),
+        "|integ(p)|": abs(float(np.array(
+            d3.Integrate(p, c).evaluate()["g"]).ravel()[0]))}
+    mean_w = float(np.array(d3.Integrate(u @ ez, c).evaluate()[
+        "g"]).ravel()[0]) / volume
+    # u's grid data last, on the dealias grid: the scale-1 grid drops the
+    # last radial mode, where the tau lift puts its content
+    u.change_scales(u.domain.dealias)
+    u_max = float(np.abs(np.array(u["g"])).max())
+    errs["u(r=R)/max|u|"] = wall / u_max
+    bad = {k: v for k, v in errs.items() if not v <= 1e-10}
+    errs.update(mean_axial_velocity=mean_w, u_max=u_max,
+                div_rows_of_LX=constraint_residual(solver, 1))
+    if not (np.isfinite(mean_w) and abs(mean_w - 0.5) <= 0.005):
+        bad["mean_axial_velocity"] = mean_w
+    log(f"{label} checks " + json.dumps(errs))
+    if bad:
+        fail(f"{label}: checks out of bound: {bad}")
+    return errs
+
+
+def pipe_phase(size, steps, block):
+    """pipe_flow64x64x48 (phase 22): build_pipe_flow on the card under
+    'auto' (dense: the banded attempt refused, the band too wide), the
+    CFL's 20 steps and a step_many block, the checks, the breakdown."""
+    import torch
+    from dedalus_tpu_torch.core import fusedstep
+    from dedalus_tpu_torch.extras.bench_problems import build_pipe_flow
+    label = "pipe_flow%dx%dx%d" % size
+    small = "pipe_flow%dx%dx%d" % PIPE_SMALL
+    rec = {"cell": label, "size": list(size),
+           "card_vs_cpu_rel": polar_card_vs_cpu(
+               small, lambda device: (build_pipe_flow(
+                   *PIPE_SMALL, device=device)[0], 5e-3), 20, ("u",),
+               PIPE_ALGEBRAIC_BOUND)}
+    release()
+    torch.cuda.reset_peak_memory_stats()
+    rec["allocated_before_build_GB"] = torch.cuda.memory_allocated() / 1e9
+    rec["host_rss_before_build_GB"] = host_rss_GB()
+    t0 = time.perf_counter()
+    with RssPeak() as rss:
+        solver, cfl = build_pipe_flow(*size, device="cuda")
+        torch.cuda.synchronize()
+    rec["build_s"] = time.perf_counter() - t0
+    rec["host_rss_after_build_GB"] = host_rss_GB()
+    rec["host_peak_rss_GB"] = rss.peak_GB      # sampled during the build
+    G, S = solver.pencil_shape
+    rec.update(build_phases_s=dict(solver.build_seconds),
+               pencil_shape=[G, S], ops=solver.ops.kind,
+               matsolver=solver.ops.solver_cls.__name__,
+               banded_reason=solver._banded_reason,
+               dense_store_GB=G * S * S * 8 / 1e9,
+               after_build_GB=torch.cuda.memory_allocated() / 1e9)
+    log(f"{label} build " + json.dumps(rec))
+    if rec["pencil_shape"] != PIPE_PENCILS or solver.ops.kind != "dense" \
+            or not str(solver._banded_reason).startswith("band too wide"):
+        fail(f"{label}: {solver.ops.kind} path, pencils {rec['pencil_shape']}"
+             f", reason {solver._banded_reason!r}; expected dense "
+             f"{PIPE_PENCILS} after 'band too wide'")
+    # the main path: the factoring first step and the CFL's steps, the
+    # kernel's counts set to 0 just before and read just after
+    reset_launches()
+    t0 = time.perf_counter()
+    solver.step(cfl.compute_timestep())
+    torch.cuda.synchronize()
+    rec["first_step_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        solver.step(cfl.compute_timestep())
+    torch.cuda.synchronize()
+    rec["cfl_steps_per_s"] = steps / (time.perf_counter() - t0)
+    rec["launches"] = dict(fusedstep.LAUNCHES)
+    dt = cfl.compute_timestep()
+    rec["dt"] = [h["dt"] for h in cfl.history]
+    rec["factorizations"] = solver.timestepper.factorizations
+    if sum(rec["launches"].values()):
+        fail(f"{label}: the dense path launched {rec['launches']}")
+    # steady steps at the CFL's dt: no host sync, then the replayed block
+    check_no_host_syncs(label, rec, solver, dt)
+    rec["steps_per_s"] = steps_per_s(solver, dt, steps)
+    rec["step_many"] = step_many_check(label, solver, dt, block, 10)
+    if not rec["step_many"]["replay_bit_equal"]:
+        fail(f"{label}: the replayed block is not bit-equal to the loop")
+    top = rec["step_many"]["profile_block"]["top_kernels_ms_per_step"]
+    rec["trsm_share_of_replayed_step"] = sum(
+        ms for name, ms in top.items() if "trsm" in name.lower()) \
+        / rec["step_many"]["profile_block"]["device_ms_per_step"]
+    rec["floored_pivots"] = int(solver.floored_pivots.sum())
+    rec["checks"] = pipe_checks(label, solver)
+    rec["max_memory_allocated_GB"] = torch.cuda.max_memory_allocated() / 1e9
+    rec["own_peak_GB"] = rec["max_memory_allocated_GB"] \
+        - rec["allocated_before_build_GB"]
+    if not rec["own_peak_GB"] < 80:
+        fail(f"{label}: own peak {rec['own_peak_GB']:.2f} GB")
+    t0 = time.perf_counter()
+    aux = solver.ops.factor_lincomb(1.0, solver.M_mat, dt, solver.L_mat)
+    torch.cuda.synchronize()
+    rec["factor_s"] = time.perf_counter() - t0
+    del aux
+    release()
+    rec["breakdown_ms"] = dense_breakdown(label, solver, dt, 10, cfl)
+    rec["iteration"] = solver.iteration
+    log(f"{label} " + json.dumps({k: rec[k] for k in (
+        "build_s", "build_phases_s", "factor_s", "first_step_s",
+        "cfl_steps_per_s", "steps_per_s", "pencil_shape", "banded_reason",
+        "dense_store_GB", "own_peak_GB", "host_peak_rss_GB",
+        "host_syncs_per_step", "trsm_share_of_replayed_step")}))
+    del solver, cfl
+    return rec
+
+
+def cylinder_diffusion_phase(steps):
+    """examples/cylinder_diffusion.py at its own 16x16x32 (dense, phase
+    22): RK443 steps at dt 2e-4 and the exact Fourier-Bessel decay within
+    the example's 1e-6."""
+    import torch
+    from dedalus_tpu_torch.extras.bench_problems import \
+        build_cylinder_diffusion
+    t0 = time.perf_counter()
+    solver, dt, decay_error = build_cylinder_diffusion(device="cuda")
+    torch.cuda.synchronize()
+    rec = {"build_s": time.perf_counter() - t0,
+           "pencil_shape": list(solver.pencil_shape),
+           "ops": solver.ops.kind, "steps": steps, "dt": dt}
+    rec["steps_per_s"] = steps_per_s(solver, dt, steps)
+    rec["decay_error"] = decay_error()
+    log("cylinder_diffusion16x16x32 " + json.dumps(rec))
+    if not rec["decay_error"] < 1e-6:
+        fail(f"cylinder diffusion: decay error {rec['decay_error']:.3e}")
+    del solver
+    return rec
+
+
+def annulus_cylinder_lbvp_phase():
+    """The Poisson LBVP in a cylindrical annulus (dense, phase 22;
+    build_annulus_cylinder_poisson, f64 and complex128) card vs CPU to
+    1e-12 of the solution, and within 1e-10 of the exact one."""
+    import numpy as np
+    from dedalus_tpu_torch.extras.bench_problems import \
+        build_annulus_cylinder_poisson
+    rec = {}
+    for dtype in (np.float64, np.complex128):
+        runs = {}
+        for device in ("cuda", "cpu"):
+            u, u_exact = build_annulus_cylinder_poisson(dtype=dtype,
+                                                        device=device)
+            exact = np.array(u_exact["g"])
+            runs[device] = (np.array(u["c"]), float(
+                np.abs(np.array(u["g"]) - exact).max()
+                / np.abs(exact).max()))
+        rec[np.dtype(dtype).name] = {
+            "card_vs_cpu_rel": rel_diff(runs["cuda"][0], runs["cpu"][0]),
+            "error_vs_exact": [runs["cuda"][1], runs["cpu"][1]]}
+    log("annulus cylinder lbvp " + json.dumps(rec))
+    for name, r in rec.items():
+        if not (r["card_vs_cpu_rel"] <= 1e-12
+                and max(r["error_vs_exact"]) <= 1e-10):
+            fail(f"annulus cylinder LBVP {name}: {r}")
+    return rec
+
+
+def pipe_evp_phase(Nr):
+    """examples/pipe_flow.py at its Nr (complex disk EVP, dense, phase
+    22): build s, the m = 1 eigensolve s (scipy on the host), the mode
+    nearest -0.0227050 - 0.9514810i within the example's 1e-4, the
+    slowest mode decaying."""
+    import numpy as np
+    import torch
+    from dedalus_tpu_torch.extras.bench_problems import (
+        build_pipe_flow_evp, PIPE_FLOW_EVP_BAR, PIPE_FLOW_EVP_TARGET)
+    t0 = time.perf_counter()
+    solver, sp = build_pipe_flow_evp(Nr, device="cuda")
+    torch.cuda.synchronize()
+    rec = {"Nr": Nr, "build_s": time.perf_counter() - t0,
+           "pencil_shape": list(solver.pencil_shape)}
+    t0 = time.perf_counter()
+    solver.solve_dense(sp)
+    rec["eigensolve_s"] = time.perf_counter() - t0
+    evals = np.asarray(solver.eigenvalues)
+    evals = evals[np.isfinite(evals)]
+    slowest = evals[np.argmax(evals.real)]
+    match = evals[np.argmin(np.abs(evals - PIPE_FLOW_EVP_TARGET))]
+    rec.update(slowest=[slowest.real, slowest.imag],
+               nearest=[match.real, match.imag],
+               nearest_error=float(abs(match - PIPE_FLOW_EVP_TARGET)))
+    log(f"pipe_flow_evp{Nr} " + json.dumps(rec))
+    if not (rec["nearest_error"] < PIPE_FLOW_EVP_BAR and slowest.real < 0):
+        fail(f"pipe_flow_evp{Nr}: {rec}")
+    del solver
+    return rec
+
+
 def large_q_kernels():
     """Both kernels against their plain versions past q = 128, at random
     operators of LARGE_Q_SHAPES in every dtype (phase 21)."""
@@ -2822,6 +3122,54 @@ def expected_launches(solver, steps, factorizations):
     ts = solver.timestepper
     solves = steps * ts.stages * (1 + solver.ops.sweeps)
     return factorizations + solves, step_aux(solver)["factor_chunks"]
+
+
+def cylinder_phase(card):
+    """Phase 22, the cylinder: the pipe at PIPE_SIZE (the slice's main
+    path, dense under 'auto': its counts set to 0 around its steps and
+    read after; every cell here runs inside dense_path), the example's
+    diffusion, an annulus-cylinder LBVP and the pipe-flow EVP. Logs and
+    returns the summary."""
+    pipe_label = "pipe_flow%dx%dx%d" % PIPE_SIZE
+    RESULTS["cylinder"] = {}
+    RESULTS["cylinder"][pipe_label] = dense_path(
+        pipe_label, lambda: pipe_phase(PIPE_SIZE, PIPE_STEPS, PIPE_BLOCK))
+    release()
+    for cell, run in (
+            ("cylinder_diffusion16x16x32",
+             lambda: cylinder_diffusion_phase(DIFFUSION_STEPS)),
+            ("annulus_cylinder_lbvp", annulus_cylinder_lbvp_phase),
+            ("pipe_flow_evp%d" % PIPE_EVP_NR,
+             lambda: pipe_evp_phase(PIPE_EVP_NR))):
+        RESULTS["cylinder"][cell] = dense_path(cell, run)
+        release()
+    prec = RESULTS["cylinder"][pipe_label]
+    sm = prec["step_many"]
+    summary = {pipe_label: {k: prec.get(k) for k in (
+        "pencil_shape", "ops", "matsolver", "banded_reason",
+        "dense_store_GB", "build_s", "build_phases_s", "factor_s",
+        "first_step_s", "cfl_steps_per_s", "steps_per_s",
+        "max_memory_allocated_GB", "own_peak_GB",
+        "allocated_before_build_GB", "host_rss_after_build_GB",
+        "host_peak_rss_GB", "host_syncs_per_step", "card_vs_cpu_rel",
+        "launches", "trsm_share_of_replayed_step", "checks")}}
+    summary[pipe_label].update({
+        "loop_steps_per_s": sm["loop_steps_per_s"],
+        "block_steps_per_s": sm["block_steps_per_s"],
+        "replay_bit_equal": sm["replay_bit_equal"],
+        "host_syncs_per_block": sm["host_syncs_per_block"],
+        "idle_share": [sm["profile_loop"]["idle_share"],
+                       sm["profile_block"]["idle_share"]],
+        "kernels_per_step": [sm["profile_loop"]["kernels_per_step"],
+                             sm["profile_block"]["kernels_per_step"]],
+        "substitution_launches":
+            RESULTS["dense_path_launches"][pipe_label]})
+    for cell in RESULTS["cylinder"]:
+        if cell != pipe_label:
+            summary[cell] = RESULTS["cylinder"][cell]
+    summary["card"] = card
+    log("cylinder " + json.dumps(summary))
+    return summary
 
 
 def main():
@@ -3099,20 +3447,6 @@ def main():
     release()
     phase_done(f"4 rb{Nx}x{Nz}")
 
-    def dense_path(path, run):
-        """Run a path that takes the dense solve with the substitution
-        kernel's count set to 0 just before it; record the count read
-        just after, which must stay 0."""
-        for name in fusedstep.LAUNCHES:
-            fusedstep.LAUNCHES[name] = 0
-        rec = run()
-        n = sum(fusedstep.LAUNCHES.values())
-        RESULTS.setdefault("dense_path_launches", {})[path] = n
-        if n:
-            fail(f"the dense {path} path launched the banded kernel {n} "
-                 "times")
-        return rec
-
     # ---------------------------------------------------------- phase 5
     RESULTS["kdv"] = dense_path("kdv1024", lambda: kdv_phase(1024, 500))
     log("kdv1024 " + json.dumps(RESULTS["kdv"]))
@@ -3381,6 +3715,15 @@ def main():
     # --------------------------------------------------------- phase 21
     # both kernels past q = 128 at random operators in every dtype
     RESULTS["large_q_kernels"] = large_q_kernels()
+    phase_done("21 large-q kernels")
+
+    # --------------------------------------------------------- phase 22
+    # the cylinder: the pipe at 64x64x48 (the slice's main path, dense
+    # under 'auto': its counts set to 0 around its steps and read after;
+    # every cell here runs inside dense_path), the example's diffusion,
+    # an annulus-cylinder LBVP and the pipe-flow EVP
+    cylinder_phase(card)
+    phase_done("22 cylinder")
     # times and bound at each kernel's main path shapes (the solve's
     # kernel at rb3d_128's own factor operators, q = 80, f64; the
     # transposed solve's at the rb2048x1024 shapes, the gradients' main
@@ -3512,7 +3855,7 @@ def main():
         if not any(entry["launches_by_path"].values()):
             fail(f"{entry['name']} was launched on no path of this run")
     RESULTS["kernels"] = kernels["kernels"]
-    phase_done("21 kernels line")
+    phase_done("kernels line")
     log(json.dumps(kernels))
     log(card)
     log(json.dumps({"ok": True, "device": {

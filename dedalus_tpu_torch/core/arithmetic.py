@@ -383,6 +383,23 @@ class ProductBase(Future):
                 descrs.append(("full", sparsify(
                     M, self._ncc_sparsify_cutoff(radial_coeffs))))
                 axis += 2
+            elif hasattr(nb, "multiplication_matrix") and nb.separable:
+                # a Fourier NCC on a periodic axis the layout coupled: the
+                # whole axis's convolution matrix
+                # (dedalus_tpu/core/arithmetic.py:532)
+                ax_coeffs = np.moveaxis(ccomp, axis, -1)
+                if ax_coeffs.size != ax_coeffs.shape[-1]:
+                    raise NonlinearOperatorError(
+                        "LHS NCCs varying along several axes are not "
+                        "supported.")
+                cut = self._ncc_sparsify_cutoff(ax_coeffs)
+                if ob is None:
+                    descrs.append(("full", sparsify(ax_coeffs.reshape(-1, 1),
+                                                    cut)))
+                else:
+                    M = ob.multiplication_matrix(ax_coeffs.ravel(), nb)
+                    descrs.append(("full", sparsify(M, cut)))
+                axis += 1
             else:
                 raise NonlinearOperatorError(
                     f"LHS NCCs may not vary along basis {nb!r}.")
@@ -444,10 +461,15 @@ class ProductBase(Future):
         r_axis = az_axis + 1
         dim = self.dist.dim
         # profiles on the 2x quadrature grid, via the field's transforms
-        old_scales = ncc.scales
-        ncc.change_scales(2)
-        grid = np.asarray(ncc["g"])
-        ncc.change_scales(old_scales)
+        # on a scratch copy of its coefficients: reading the NCC itself at
+        # scale 2 and back would round-trip its data through coefficient
+        # space once per group, drifting it by ~1e-13 relative a call
+        # (the JAX package's _disk_ncc_matrix does, :606-609)
+        work = ncc.dist.Field(bases=ncc.domain.bases,
+                              tensorsig=ncc.tensorsig, dtype=ncc.dtype)
+        work["c"] = np.array(ncc["c"])
+        work.change_scales(2)
+        grid = np.asarray(work["g"])
         tdim_n = len(ncc.tensorsig)
         ncomp_n = int(np.prod(ncc.tshape, dtype=int)) if ncc.tshape else 1
         flat = grid.reshape((ncomp_n,) + grid.shape[tdim_n:])

@@ -282,6 +282,43 @@ class FourierBase(Basis):
     def derivative_basis(self, order=1):
         return self
 
+    def _mult_plan_cls(self):
+        """The matrix transform plan of this basis (the registry walks the
+        MRO, so the polar S1 azimuth bases reuse their Fourier parent's)."""
+        from .transforms import transform_registry
+        for cls in type(self).__mro__:
+            plan = transform_registry.get((cls.__name__, "matrix"))
+            if plan is not None:
+                return plan
+        raise KeyError(f"No matrix transform plan for {type(self).__name__}")
+
+    @CachedMethod
+    def _mult_forward_matrix(self, Ng):
+        """The dense forward transform on the Ng-point grid, cached per
+        (basis, Ng)."""
+        return self._mult_plan_cls().build_forward(self, Ng / self.size)
+
+    @CachedMethod
+    def _mult_backward_matrix(self, Ng):
+        return self._mult_plan_cls().build_backward(self, Ng / self.size)
+
+    def multiplication_matrix(self, ncc_coeffs, ncc_basis=None):
+        """
+        Coefficient-space matrix multiplying by the function with
+        coefficients `ncc_coeffs` (on `ncc_basis`, default self): the
+        coupling matrix of an LHS NCC that varies along this periodic axis
+        (dedalus_tpu/core/basis.py:331). Built as forward . diag(ncc on
+        grid) . backward on a 2x-oversampled common grid (alias-free for
+        products of two resolved functions).
+        """
+        ncc_basis = ncc_basis or self
+        Ng = 2 * max(self.size, ncc_basis.size)
+        F = self._mult_forward_matrix(Ng)
+        B = self._mult_backward_matrix(Ng)
+        B_ncc = B if ncc_basis is self else ncc_basis._mult_backward_matrix(Ng)
+        g = B_ncc @ np.asarray(ncc_coeffs)
+        return F @ (g[:, None] * B)
+
 
 class RealFourier(FourierBase):
     """

@@ -1,6 +1,7 @@
 """
 Coordinate systems (counterpart of dedalus_tpu/core/coords.py: Cartesian
-systems, polar coordinates, the two-sphere and spherical coordinates). Coordinates are pure
+systems, direct products, polar coordinates, the two-sphere and spherical
+coordinates). Coordinates are pure
 metadata: axis names and ordering, plus, for the curvilinear systems, the
 small unitary intertwiner mapping tensor components to spin components.
 """
@@ -112,6 +113,104 @@ class AzimuthalCoordinate(Coordinate):
 class CurvilinearCoordinateSystem(CoordinateSystem):
     """Base for curvilinear systems: defines spin intertwiners
     (reference: core/coords.py CurvilinearCoordinateSystem)."""
+
+
+class DirectProduct(CoordinateSystem):
+    """
+    Direct product of coordinate systems, the cylinder's coordinates, e.g.
+    DirectProduct(Coordinate('z'), PolarCoordinates('phi', 'r'))
+    (dedalus_tpu/core/coords.py:130; reference: core/coords.py:99
+    DirectProduct).
+
+    Tensor components over the product concatenate the factors' components
+    in order; the coordinate -> spin map is the block diagonal of the
+    factors' maps (identity on straight factors), so a cylinder vector
+    stores (z, spin-, spin+) components in coefficient space.
+    """
+
+    def __init__(self, *coordsystems, right_handed=None):
+        self.coordsystems = tuple(coordsystems)
+        coords = []
+        for cs in coordsystems:
+            coords.extend(cs.coords)
+        names = tuple(c.name for c in coords)
+        if len(set(names)) != len(names):
+            raise ValueError("Cannot repeat coordinate names in DirectProduct.")
+        self.coords = tuple(coords)
+        self.names = names
+        self.dim = sum(cs.dim for cs in coordsystems)
+        if right_handed is None:
+            # a 3-D product with a curvilinear factor is left-handed in its
+            # (z, phi, r) order, as in the reference
+            right_handed = not (self.dim == 3 and self.curvilinear)
+        self.right_handed = right_handed
+        self.dist = None
+
+    def __repr__(self):
+        return f"DirectProduct{self.names}"
+
+    def __eq__(self, other):
+        # the same factors in the same order: equal flattened names alone
+        # would alias distinct products in the cached intertwiners
+        return (isinstance(other, DirectProduct)
+                and self.coordsystems == other.coordsystems)
+
+    def __hash__(self):
+        return hash(("DirectProduct",)
+                    + tuple((type(cs).__name__,) + tuple(cs.names)
+                            for cs in self.coordsystems))
+
+    @property
+    def _cache_token(self):
+        return ("DirectProduct",
+                tuple(cs._cache_token for cs in self.coordsystems))
+
+    @property
+    def curvilinear(self):
+        return any(isinstance(cs, CurvilinearCoordinateSystem)
+                   for cs in self.coordsystems)
+
+    @property
+    def spin_ordering(self):
+        """The factors' spin labels concatenated (zeros on straight
+        factors)."""
+        out = []
+        for cs in self.coordsystems:
+            out.extend(getattr(cs, "spin_ordering", (0,) * cs.dim))
+        return tuple(out)
+
+    def set_distributor(self, dist):
+        self.dist = dist
+        for cs in self.coordsystems:
+            cs.set_distributor(dist)
+
+    def sub_slice(self, sub_cs):
+        """The component slice of the factor equal to `sub_cs`."""
+        start = 0
+        for cs in self.coordsystems:
+            if cs == sub_cs:
+                return slice(start, start + cs.dim)
+            start += cs.dim
+        raise ValueError(f"{sub_cs} is not a factor of {self}.")
+
+    def curvilinear_sub(self):
+        """The (single) curvilinear factor, or None."""
+        subs = [cs for cs in self.coordsystems
+                if isinstance(cs, CurvilinearCoordinateSystem)]
+        if len(subs) > 1:
+            raise NotImplementedError(
+                "Products of multiple curvilinear systems.")
+        return subs[0] if subs else None
+
+    def U_forward(self):
+        """The block-diagonal coordinate -> spin map of one tensor index."""
+        import scipy.linalg
+        return scipy.linalg.block_diag(*[
+            cs.U_forward() if hasattr(cs, "U_forward") else np.eye(cs.dim)
+            for cs in self.coordsystems])
+
+    def U_backward(self):
+        return self.U_forward().T.conj()
 
 
 class PolarCoordinates(CurvilinearCoordinateSystem):

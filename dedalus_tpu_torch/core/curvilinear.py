@@ -45,33 +45,76 @@ def cs_match(tcs, cs):
     return sup is not None and sup == tcs
 
 
+def index_blocks(tcs, cs):
+    """One tensor index's components as blocks [(system, rotates)] with
+    respect to the basis system `cs`: the index whole when it rotates with
+    `cs` (cs_match) or is no DirectProduct, else a DirectProduct index
+    factor by factor, a factor rotating when it matches `cs`."""
+    if cs_match(tcs, cs):
+        return [(tcs, True)]
+    subs = getattr(tcs, "coordsystems", None)
+    if subs is None:
+        return [(tcs, False)]
+    return [(sub, cs_match(sub, cs)) for sub in subs]
+
+
+def index_rotates(tcs, cs):
+    """Per component of one tensor index: does it rotate with `cs`?"""
+    return np.concatenate([np.full(sub.dim, rot)
+                           for sub, rot in index_blocks(tcs, cs)])
+
+
+def entry_spins(tcs, cs):
+    """Spin labels of one tensor index's components with respect to `cs`:
+    each rotating block's own ordering, zeros elsewhere
+    (dedalus_tpu/core/curvilinear.py:30 _entry_spins)."""
+    return np.concatenate([
+        np.array(sub.spin_ordering) if rot else np.zeros(sub.dim, dtype=int)
+        for sub, rot in index_blocks(tcs, cs)])
+
+
 def component_spins(tensorsig, cs):
     """
     Total spin weight per flattened tensor component, counting only indices
-    that rotate with `cs` (cs_match; reference: core/basis.py
-    spin_weights).
+    (or DirectProduct factors) that rotate with `cs` (reference:
+    core/basis.py spin_weights).
     """
     spins = np.zeros(1, dtype=int)
     for tcs in tensorsig:
-        if cs_match(tcs, cs):
-            s = np.array(tcs.spin_ordering)
-        else:
-            s = np.zeros(tcs.dim, dtype=int)
-        spins = np.add.outer(spins, s).ravel()
+        spins = np.add.outer(spins, entry_spins(tcs, cs)).ravel()
     return spins
+
+
+def rotating_components(tensorsig, cs):
+    """Per flattened tensor component: does any of its indices rotate with
+    the basis system `cs` (index_rotates)? A component none of whose
+    indices rotates is a real scalar to a polar basis: on a real dtype its
+    m = 0 data has the cosine slot only (a cylinder vector's z component),
+    where a rotating component's m = 0 pair carries complex spin data."""
+    out = np.zeros(1, dtype=bool)
+    for tcs in tensorsig:
+        out = np.logical_or.outer(out, index_rotates(tcs, cs)).ravel()
+    return out
+
+
+def index_rotation(tcs, cs):
+    """The coordinate -> spin map of one tensor index with respect to
+    `cs`: block diagonal, U_forward() on each rotating block and the
+    identity elsewhere."""
+    import scipy.linalg
+    return scipy.linalg.block_diag(*[
+        sub.U_forward() if rot else np.eye(sub.dim)
+        for sub, rot in index_blocks(tcs, cs)])
 
 
 @functools.lru_cache(maxsize=None)
 def recombination_matrix(tensorsig, cs):
     """The complex unitary coordinate -> spin map (ncomp, ncomp) of a
-    tensor signature: the kron over tensor indices of each matching
-    index's U_forward() (cs_match; identity on indices of other
-    systems). Cached, so the device copy is
-    made once."""
+    tensor signature: the kron over tensor indices of index_rotation.
+    Cached, so the device copy is made once."""
     U = np.array([[1.0]])
     for tcs in tensorsig:
-        U = np.kron(U, tcs.U_forward() if cs_match(tcs, cs)
-                    else np.eye(tcs.dim))
+        U = np.kron(U, index_rotation(tcs, cs))
     return U
 
 

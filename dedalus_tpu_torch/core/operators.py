@@ -33,8 +33,8 @@ from .field import Field
 from .future import Future, ev
 from .domain import Domain
 from .basis import Jacobi
-from .coords import (CartesianCoordinates, PolarCoordinates, S2Coordinates,
-                     SphericalCoordinates, AzimuthalCoordinate)
+from .coords import (CartesianCoordinates, DirectProduct, PolarCoordinates,
+                     S2Coordinates, SphericalCoordinates, AzimuthalCoordinate)
 from .curvilinear import SpinBasisMixin, apply_group_stack, promote_complex
 from ..tools.array import (kron as sparse_kron, sparsify, apply_matrix_torch,
                             match_precision)
@@ -1147,7 +1147,8 @@ class CartesianCurl(CartesianVectorOperator):
 
 # grad, div, lap and curl dispatch on the coordinate system: the polar
 # and sphere systems' to the spin-ladder operators of core/polar.py, the
-# spherical system's to the regularity operators of core/spherical3d.py
+# spherical system's to the regularity operators of core/spherical3d.py,
+# a curvilinear DirectProduct's to core/cylinder.py
 # (dedalus_tpu/core/operators.py:1170-1245)
 
 def _spin_cs(cs):
@@ -1156,6 +1157,10 @@ def _spin_cs(cs):
 
 def _spherical_cs(cs):
     return isinstance(cs, SphericalCoordinates)
+
+
+def _product_cs(cs):
+    return isinstance(cs, DirectProduct) and cs.curvilinear
 
 
 @parseable("grad", "Gradient")
@@ -1169,6 +1174,9 @@ def Gradient(operand, cs=None):
     if _spin_cs(cs):
         from .polar import PolarGradient
         return PolarGradient(operand, cs)
+    if _product_cs(cs):
+        from .cylinder import CylinderGradient
+        return CylinderGradient(operand, cs)
     return CartesianGradient(operand, cs)
 
 
@@ -1182,6 +1190,9 @@ def Divergence(operand, index=0):
     if _spin_cs(operand.tensorsig[index]):
         from .polar import PolarDivergence
         return PolarDivergence(operand, index)
+    if _product_cs(operand.tensorsig[index]):
+        from .cylinder import CylinderDivergence
+        return CylinderDivergence(operand, index)
     return CartesianDivergence(operand, index)
 
 
@@ -1196,6 +1207,9 @@ def Laplacian(operand, cs=None):
     if _spin_cs(cs2):
         from .polar import PolarLaplacian
         return PolarLaplacian(operand, cs2)
+    if _product_cs(cs2):
+        from .cylinder import CylinderLaplacian
+        return CylinderLaplacian(operand, cs2)
     return CartesianLaplacian(operand, cs)
 
 
@@ -1206,6 +1220,9 @@ def Curl(operand):
     if operand.tensorsig and _spherical_cs(operand.tensorsig[0]):
         from .spherical3d import SphericalCurl
         return SphericalCurl(operand)
+    if operand.tensorsig and _product_cs(operand.tensorsig[0]):
+        from .cylinder import CylinderCurl
+        return CylinderCurl(operand)
     return CartesianCurl(operand)
 
 

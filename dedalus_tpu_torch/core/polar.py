@@ -34,8 +34,8 @@ from ..tools import jacobi as jacobi_tools
 from ..libraries import zernike
 from .basis import Basis, RealFourier, ComplexFourier, AffineCOV
 from .coords import PolarCoordinates
-from .curvilinear import (PAIR_J, SpinBasisMixin, component_spins,
-                          apply_recombination)
+from .curvilinear import (PAIR_J, SpinBasisMixin, apply_recombination,
+                          component_spins, rotating_components)
 from .domain import Domain
 from .future import ev
 from .operators import LinearOperator
@@ -49,7 +49,12 @@ class S1SpinTransformMixin:
     reference: core/basis.py:1798 S1_basis)."""
 
     def _relevant(self, tensorsig):
-        return any(tcs == self.cs for tcs in tensorsig)
+        """Does any component rotate with the polar system (a polar
+        index, or the polar factor of a cylinder's DirectProduct index:
+        the JAX package's circle bases miss the latter,
+        dedalus_tpu/core/polar.py:41, and store an edge vector of a
+        cylinder unrotated)?"""
+        return bool(rotating_components(tuple(tensorsig), self.cs).any())
 
     @property
     def _pair_real(self):
@@ -91,20 +96,21 @@ class S1Basis(S1SpinTransformMixin, RealFourier):
         self.cs = coord.cs
 
     def component_valid_mask(self, tensorsig, group, sep_widths):
-        """Spin pairs carry complex data: all slots valid for tensors;
-        scalars drop the m=0 minus-sin slot (reference:
+        """Spin pairs carry complex data: both m = 0 slots are valid for
+        the components that rotate with the polar system; scalars and the
+        other components drop the m = 0 minus-sin slot (reference:
         core/basis.py:1123-1133)."""
         tshape = tuple(cs.dim for cs in tensorsig)
         ncomp = int(np.prod(tshape, dtype=int)) if tshape else 1
+        fixed = ~rotating_components(tuple(tensorsig), self.cs)
         axis = self.first_axis
         if axis in sep_widths:
             mask = np.ones((ncomp, 2), dtype=bool)
-            if not self._relevant(tensorsig) and group[axis] == 0:
-                mask[:, 1] = False
+            if group[axis] == 0:
+                mask[fixed, 1] = False
             return mask
         mask = np.ones((ncomp, self.size), dtype=bool)
-        if not self._relevant(tensorsig):
-            mask[:, 1] = False
+        mask[fixed, 1] = False
         return mask
 
 
@@ -260,8 +266,11 @@ class DiskBasis(_PolarBasis):
         mask &= (np.arange(self.Nr) >= self._nmin(m))[None, None, :]
         if self.complex and g == self.Nphi // 2:
             mask[:] = False  # Nyquist
-        if (not self.complex) and (not tensorsig) and m == 0:
-            mask[:, 1, :] = False  # minus-sin slot of m=0 for scalars
+        if (not self.complex) and m == 0:
+            # the minus-sin slot of m = 0 for scalars and components that
+            # do not rotate (S1Basis.component_valid_mask)
+            mask[~rotating_components(tuple(tensorsig), self.cs), 1, :] = \
+                False
         return mask
 
     # ------------------------------------------------- radial matrix stacks
@@ -474,8 +483,10 @@ class AnnulusBasis(WeightedJacobiRadial, _PolarBasis):
         mask = np.ones((ncomp, gs, self.Nr), dtype=bool)
         if self.complex and g == self.Nphi // 2:
             mask[:] = False  # Nyquist
-        if (not self.complex) and (not tensorsig) and self.group_m()[g] == 0:
-            mask[:, 1, :] = False  # minus-sin slot of m=0 for scalars
+        if (not self.complex) and self.group_m()[g] == 0:
+            # as on the disk (DiskBasis.component_valid_mask)
+            mask[~rotating_components(tuple(tensorsig), self.cs), 1, :] = \
+                False
         return mask
 
     # -------------------------------------------------- radial transforms

@@ -103,6 +103,8 @@ class SolverBase:
         self._lazy = False
         self._pin_repair = None
         self._batched = None
+        # why the banded path was refused (None: not tried, or taken)
+        self._banded_reason = None
         if self.lazy_ok and dense_bytes > int(config["linear algebra"].get(
                 "EVP_LAZY_BYTES", str(1 << 28))):
             # an EVP at scale: no (G, S, S) store at all; solve_dense and
@@ -135,16 +137,23 @@ class SolverBase:
                                                   str(1 << 30)))
         if self._path == "banded" or (self._path == "auto"
                                       and dense_bytes > cutoff):
-            reason = self._try_banded(batched, names, S)
+            t0 = time_mod.perf_counter()
+            reason = self._banded_reason = self._try_banded(batched, names,
+                                                            S)
             if reason is None:
                 return
+            self.build_seconds["refused_banded"] = \
+                time_mod.perf_counter() - t0
             if self._path == "banded":
                 raise ValueError("Banded solve forced but not applicable: "
                                  f"{reason}")
             msg = (f"Banded path not applicable ({reason}); using dense "
                    f"({dense_bytes / 1e9:.2f} GB)")
             if dense_bytes > 4 * cutoff:
-                logger.warning(msg + " — this exceeds the banded cutoff 4x")
+                logger.warning(
+                    msg + " — this exceeds the banded cutoff 4x; consider "
+                    "lowering the coupled-axis resolution or making more "
+                    "axes separable (Fourier).")
             else:
                 logger.info(msg)
         t0 = time_mod.perf_counter()

@@ -23,7 +23,11 @@ rotating shell convection (benchmarks/progression.py build_rotconv_ivp)
 and the rotating-convection onset EVP on a complex shell
 (examples/rotating_convection.py); and the ball: internally heated
 convection (examples/internally_heated_convection.py) and the Lane-Emden
-NLBVP (examples/lane_emden.py).
+NLBVP (examples/lane_emden.py); and the cylinder: flow in a periodic pipe
+(the equations of the JAX package's tests/test_cylinder.py:305), heat
+diffusion in a periodic cylinder (examples/cylinder_diffusion.py), a
+Poisson LBVP in a cylindrical annulus and the pipe flow's
+linear-stability EVP (examples/pipe_flow.py).
 Each builds on `device` (default `cuda`; pass "cpu" to run on the host).
 """
 
@@ -893,3 +897,230 @@ def build_lane_emden(Nr=64, n=3.0, device=None):
         return float(np.asarray(f0.evaluate()["g"]).ravel()[0]) \
             ** ((n - 1) / 2)
     return solver, f, radius
+
+
+def pipe_perturbation(z, phi, r, radius, length, amplitude, seed):
+    """
+    A smooth perturbation of a pipe's velocity from numpy's
+    default_rng(seed), as (3, ...) cylinder components (z, phi, r) on the
+    grids (z, phi, r): each Cartesian component (x, y, z) a sum of three
+    axial Fourier modes (wavenumbers 2 pi k / length, k < 3, random
+    phases) times a random linear function of (x, y) / radius,
+    all times (1 - r^2 / radius^2), so it is regular at the axis and
+    vanishes at the wall; scaled to max |component| = amplitude.
+    """
+    rng = np.random.default_rng(seed)
+    z, phi, r = (np.asarray(a) for a in (z, phi, r))
+    x, y = r * np.cos(phi) / radius, r * np.sin(phi) / radius
+    shape = np.broadcast_shapes(z.shape, phi.shape, r.shape)
+    envelope = 1 - (r / radius) ** 2
+    cart = np.zeros((3,) + shape)
+    for c in range(3):
+        for k in range(3):
+            a, cx, cy = rng.standard_normal(3)
+            phase = 2 * np.pi * rng.uniform()
+            cart[c] += (a + cx * x + cy * y) \
+                * np.cos(2 * np.pi * k * z / length + phase)
+        cart[c] *= envelope
+    cart *= amplitude / np.abs(cart).max()
+    out = np.empty_like(cart)
+    out[0] = cart[2]
+    out[1] = -cart[0] * np.sin(phi) + cart[1] * np.cos(phi)
+    out[2] = cart[0] * np.cos(phi) + cart[1] * np.sin(phi)
+    return out
+
+
+def build_pipe_flow(Nz, Nphi, Nr, Re=2000.0, radius=1.0, length=10.0,
+                    dtype=np.float64, amplitude=1e-3, seed=0, matsolver=None,
+                    device=None):
+    """
+    Incompressible flow in a periodic pipe: the equations of the JAX
+    package's tests/test_cylinder.py:305 test_pipe_flow_ivp_structure
+    with nu = 1/Re: RealFourier z (Nz, length) x DiskBasis (Nphi, Nr,
+    radius) on DirectProduct(z, (phi, r)) (ComplexFourier and a complex
+    disk for a complex dtype), dealias 3/2, RK222, the
+    velocity u, pressure p, a vector tau on the disk's edge lifted to the
+    disk's last mode, tau_p and the gauge integ(p) = 0:
+
+        dt(u) - nu*lap(u) + grad(p) + lift(tau_u) = - u@grad(u) + Fz
+        div(u) + tau_p = 0,   u(r=radius) = 0,   integ(p) = 0
+
+    with the axial force Fz = 4 nu / radius^2 e_z, which holds the
+    laminar profile w = 1 - r^2/radius^2. Starts from that
+    profile plus pipe_perturbation(amplitude, seed). `matsolver` None
+    takes the configured 'auto' path choice. Returns (solver, cfl): the
+    CFL on u with safety 0.4, cadence 10 and max_dt = initial dt 5e-3.
+    """
+    import dedalus_tpu_torch.public as d3
+    nu = 1 / Re
+    dealias = 3 / 2
+    cz = d3.Coordinate("z")
+    cp = d3.PolarCoordinates("phi", "r")
+    coords = d3.DirectProduct(cz, cp)
+    dist = d3.Distributor(coords, dtype=dtype, device=device)
+    fourier = d3.ComplexFourier if np.dtype(dtype).kind == "c" \
+        else d3.RealFourier
+    bz = fourier(cz, size=Nz, bounds=(0, length), dealias=dealias)
+    disk = d3.DiskBasis(cp, (Nphi, Nr), dtype=dtype, radius=radius,
+                        dealias=dealias)
+    u = dist.VectorField(coords, name="u", bases=(bz, disk))
+    p = dist.Field(name="p", bases=(bz, disk))
+    tau_u = dist.VectorField(coords, name="tau_u", bases=(bz, disk.edge))
+    tau_p = dist.Field(name="tau_p")
+    Fz = dist.VectorField(coords, name="Fz")
+    Fz["g"] = np.array([4 * nu / radius ** 2, 0.0, 0.0]).reshape(
+        (3, 1, 1, 1))
+    lift = lambda A: d3.Lift(A, disk, -1)  # noqa: E731
+    problem = d3.IVP([u, p, tau_u, tau_p], namespace=locals())
+    problem.add_equation(
+        "dt(u) - nu*lap(u) + grad(p) + lift(tau_u) = - u@grad(u) + Fz")
+    problem.add_equation("div(u) + tau_p = 0")
+    problem.add_equation(f"u(r={radius}) = 0")
+    problem.add_equation("integ(p) = 0")
+    kw = {} if matsolver is None else {"matsolver": matsolver}
+    solver = problem.build_solver(d3.RK222, **kw)
+    z, phi, r = dist.local_grids(bz, disk)
+    ug = pipe_perturbation(z, phi, r, radius, length, amplitude, seed)
+    ug[0] += 1 - (np.asarray(r) / radius) ** 2
+    u["g"] = ug
+    cfl = d3.CFL(solver, initial_dt=5e-3, max_dt=5e-3, safety=0.4,
+                 cadence=10)
+    cfl.add_velocity(u)
+    return solver, cfl
+
+
+def build_cylinder_diffusion(Nz=16, Nphi=16, Nr=32, dtype=np.float64,
+                             device=None):
+    """
+    Heat diffusion in a periodic cylinder, a copy of
+    examples/cylinder_diffusion.py: RealFourier z (Nz, length 2) x
+    DiskBasis (Nphi, Nr, radius 1.5), dealias 3/2, RK443,
+    dt(u) - lap(u) + lift(tau) = 0 with u(r=R) = 0, from the exact
+    eigenmode J0(j01 r / R) cos(kz z). The example's size is 16x16x32 with
+    200 steps. Returns (solver, dt, decay_error): dt = 2e-4 and
+    decay_error() the max |u - exact| / max |u0| at the solver's sim_time
+    (the exact decay rate kz^2 + (j01 / R)^2).
+    """
+    from scipy.special import j0, jn_zeros
+    import dedalus_tpu_torch.public as d3
+    length, radius = 2.0, 1.5
+    cz = d3.Coordinate("z")
+    cp = d3.PolarCoordinates("phi", "r")
+    coords = d3.DirectProduct(cz, cp)
+    dist = d3.Distributor(coords, dtype=dtype, device=device)
+    zbasis = d3.RealFourier(cz, size=Nz, bounds=(0, length), dealias=3 / 2)
+    disk = d3.DiskBasis(cp, shape=(Nphi, Nr), dtype=dtype, radius=radius,
+                        dealias=3 / 2)
+    u = dist.Field(name="u", bases=(zbasis, disk))
+    tau = dist.Field(name="tau", bases=(zbasis, disk.edge))
+    lift = lambda A: d3.Lift(A, disk, -1)  # noqa: E731
+    problem = d3.IVP([u, tau], namespace=locals())
+    problem.add_equation("dt(u) - lap(u) + lift(tau) = 0")
+    problem.add_equation(f"u(r={radius}) = 0")
+    solver = problem.build_solver(d3.RK443)
+    z, phi, r = dist.local_grids(zbasis, disk)
+    kz = 2 * np.pi / length
+    j01 = jn_zeros(0, 1)[0]
+    u0 = j0(j01 * np.asarray(r) / radius) * np.cos(kz * np.asarray(z)) \
+        + 0 * np.asarray(phi)
+    u["g"] = u0
+    rate = kz ** 2 + (j01 / radius) ** 2
+
+    def decay_error():
+        u.change_scales(1)
+        exact = u0 * np.exp(-rate * solver.sim_time)
+        return float(np.abs(np.array(u["g"]) - exact).max()
+                     / np.abs(u0).max())
+    return solver, 2e-4, decay_error
+
+
+def build_annulus_cylinder_poisson(Nz=8, Nphi=16, Nr=16, dtype=np.float64,
+                                   device=None):
+    """
+    A Poisson LBVP in a cylindrical annulus: Fourier z (Nz, length 1.88)
+    x AnnulusBasis (Nphi, Nr, radii (0.5, 3.0)), the geometry of the JAX
+    package's tests/test_cylinder.py, on DirectProduct(z, (phi, r)),
+    lap(u) + lift(tau1, -1) + lift(tau2, -2) = f with u = 0 on both walls,
+    f = lap(u_exact) evaluated in the same package for the polynomial
+    u_exact = (r^2 - Ri^2)(Ro^2 - r^2)(1 + x + y cos(kz z)), kz = 2 pi /
+    length, which the bases resolve exactly. Returns (u, u_exact): the
+    solved field and the exact one, as fields.
+    """
+    import dedalus_tpu_torch.public as d3
+    length, radii = 1.88, (0.5, 3.0)
+    Ri, Ro = radii
+    cz = d3.Coordinate("z")
+    cp = d3.PolarCoordinates("phi", "r")
+    coords = d3.DirectProduct(cz, cp)
+    dist = d3.Distributor(coords, dtype=dtype, device=device)
+    bz = (d3.ComplexFourier if np.dtype(dtype).kind == "c"
+          else d3.RealFourier)(cz, size=Nz, bounds=(0, length))
+    annulus = d3.AnnulusBasis(cp, (Nphi, Nr), dtype=dtype, radii=radii)
+    z, phi, r = (np.asarray(a) for a in dist.local_grids(bz, annulus))
+    x, y = r * np.cos(phi), r * np.sin(phi)
+    u_exact = dist.Field(name="u_exact", bases=(bz, annulus))
+    u_exact["g"] = (r ** 2 - Ri ** 2) * (Ro ** 2 - r ** 2) \
+        * (1 + x + y * np.cos(2 * np.pi * z / length))
+    f = d3.lap(u_exact).evaluate()
+    u = dist.Field(name="u", bases=(bz, annulus))
+    tau1 = dist.Field(name="tau1", bases=(bz, annulus.outer_edge))
+    tau2 = dist.Field(name="tau2", bases=(bz, annulus.outer_edge))
+    lift_basis = annulus.derivative_basis(2)
+    lift = lambda A, n: d3.Lift(A, lift_basis, n)  # noqa: E731
+    problem = d3.LBVP([u, tau1, tau2], namespace=locals())
+    problem.add_equation("lap(u) + lift(tau1, -1) + lift(tau2, -2) = f")
+    problem.add_equation(f"u(r={Ri}) = 0")
+    problem.add_equation(f"u(r={Ro}) = 0")
+    problem.build_solver().solve()
+    return u, u_exact
+
+
+# examples/pipe_flow.py's converged slowest mode (Re 1e4, kz 1, m 1; Nr 48
+# and 64 agree to 6 digits) and the example's bar
+PIPE_FLOW_EVP_TARGET = -0.0227050 - 0.9514810j
+PIPE_FLOW_EVP_BAR = 1e-4
+
+
+def build_pipe_flow_evp(Nr=64, device=None):
+    """
+    The linear stability of laminar pipe flow, a copy of
+    examples/pipe_flow.py (reference: examples/evp_disk_pipe_flow) at its
+    Re = 1e4, kz = 1 and m = 1: a complex128 DiskBasis (10, Nr) of radius
+    1, the axial wavenumber kz as dz -> 1j kz, the background w0 = 1 - r^2
+    as a disk LHS NCC, no-slip walls, eigenvalue s. The example's size is
+    Nr = 64 (--quick: 32). Returns (solver, subproblem): the m = 1
+    azimuthal pencil, solver.subproblems_by_group[(1, None)], for
+    solve_dense.
+    """
+    import dedalus_tpu_torch.public as d3
+    Re, kz, m = 1e4, 1, 1
+    dtype = np.complex128
+    Nphi = 2 * max(m, 4) + 2
+    coords = d3.PolarCoordinates("phi", "r")
+    dist = d3.Distributor(coords, dtype=dtype, device=device)
+    disk = d3.DiskBasis(coords, shape=(Nphi, Nr), radius=1, dtype=dtype)
+    phi, r = dist.local_grids(disk)
+    s = dist.Field(name="s")
+    u = dist.VectorField(coords, name="u", bases=disk)
+    w = dist.Field(name="w", bases=disk)
+    p = dist.Field(name="p", bases=disk)
+    tau_u = dist.VectorField(coords, name="tau_u", bases=disk.edge)
+    tau_w = dist.Field(name="tau_w", bases=disk.edge)
+    dt = lambda A: s * A  # noqa: E731
+    dz = lambda A: 1j * kz * A  # noqa: E731
+    lift_basis = disk.derivative_basis(2)
+    lift = lambda A: d3.Lift(A, lift_basis, -1)  # noqa: E731
+    w0 = dist.Field(name="w0", bases=disk)
+    w0["g"] = np.broadcast_to(np.asarray(1 - r ** 2),
+                              np.broadcast_shapes(phi.shape, r.shape))
+    problem = d3.EVP([u, w, p, tau_u, tau_w], eigenvalue=s,
+                     namespace=locals())
+    problem.add_equation("div(u) + dz(w) = 0")
+    problem.add_equation("dt(u) + w0*dz(u) + grad(p) - (1/Re)*(lap(u) "
+                         "+ dz(dz(u))) + lift(tau_u) = 0")
+    problem.add_equation("dt(w) + w0*dz(w) + u@grad(w0) + dz(p) "
+                         "- (1/Re)*(lap(w) + dz(dz(w))) + lift(tau_w) = 0")
+    problem.add_equation("u(r=1) = 0")
+    problem.add_equation("w(r=1) = 0")
+    solver = problem.build_solver()
+    return solver, solver.subproblems_by_group[(m, None)]

@@ -57,14 +57,47 @@ def advective_cfl_frequency(u, ug):
     (components (phi, r)), |u_angular| k / R on the sphere with
     k = sqrt(Lmax (Lmax + 1)), on the shell |u_angular| k / r + |u_r| / dr
     and on the ball |u_angular| k / R + |u_r| / dr (components (phi,
-    theta, r); dedalus_tpu/extras/flow_tools.py:98-120). The direct-product
-    spacings come with the cylinder.
+    theta, r); dedalus_tpu/extras/flow_tools.py:98-120). On a
+    DirectProduct (the cylinder) the straight factors take interval
+    spacings and the polar factor its (phi, r) spacings on its component
+    slice (dedalus_tpu/extras/flow_tools.py:82-95).
     """
     from ..core.coords import (CartesianCoordinates, Coordinate,
+                               CurvilinearCoordinateSystem, DirectProduct,
                                PolarCoordinates, S2Coordinates,
                                SphericalCoordinates)
     cs = u.tensorsig[0]
     dist = u.dist
+
+    def polar_frequency(polar_cs, u_az, u_r):
+        basis = u.domain.bases[dist.get_axis(polar_cs.coords[1])]
+        if basis is None:
+            return 0.0  # velocity constant over the polar factor
+        # the azimuthal spacing r / mmax on the annulus, R / mmax on the
+        # disk; the radial one the dealias-rescaled gradient of the grid
+        # (dedalus_tpu/extras/flow_tools.py:53 polar_frequency)
+        r = np.ravel(basis.global_grids(basis.dealias)[1])
+        mmax = max(basis.shape[0] // 2 - 1, 0)
+        if mmax == 0:
+            az = np.array([np.inf])
+        elif hasattr(basis, "radii"):
+            az = r / mmax
+        else:
+            az = np.array([basis.radius / mmax])
+        dr = basis.dealias[1] * (np.gradient(r) if r.size > 1
+                                 else np.array([np.inf]))
+        r_axis = basis.first_axis + 1
+        return (u_az.abs() / _device_profile(az, r_axis, dist.dim, ug)
+                + u_r.abs() / _device_profile(dr, r_axis, dist.dim, ug))
+
+    def interval_frequency(coord, u_c):
+        axis = dist.get_axis(coord)
+        basis = u.domain.bases[axis]
+        if basis is None:
+            return 0.0
+        dx = _device_profile(interval_cfl_spacing(basis), axis, dist.dim, ug)
+        return u_c.abs() / dx
+
     if isinstance(cs, S2Coordinates):
         basis = u.domain.bases[dist.get_axis(cs.coords[0])]
         Lmax = basis.Lmax
@@ -89,38 +122,31 @@ def advective_cfl_frequency(u, ug):
                                  else np.array([np.inf]))
         return total + ug[2].abs() / _device_profile(dr, r_axis, dist.dim,
                                                      ug)
+    total = 0.0
     if isinstance(cs, PolarCoordinates):
-        basis = u.domain.bases[dist.get_axis(cs.coords[1])]
-        if basis is None:
-            return ug.new_zeros(ug.shape[1:])
-        # the azimuthal spacing r / mmax on the annulus, R / mmax on the
-        # disk; the radial one the dealias-rescaled gradient of the grid
-        # (dedalus_tpu/extras/flow_tools.py:53 polar_frequency)
-        r = np.ravel(basis.global_grids(basis.dealias)[1])
-        mmax = max(basis.shape[0] // 2 - 1, 0)
-        if mmax == 0:
-            az = np.array([np.inf])
-        elif hasattr(basis, "radii"):
-            az = r / mmax
-        else:
-            az = np.array([basis.radius / mmax])
-        dr = basis.dealias[1] * (np.gradient(r) if r.size > 1
-                                 else np.array([np.inf]))
-        r_axis = basis.first_axis + 1
-        return (ug[0].abs() / _device_profile(az, r_axis, dist.dim, ug)
-                + ug[1].abs() / _device_profile(dr, r_axis, dist.dim, ug))
-    if not isinstance(cs, (CartesianCoordinates, Coordinate)):
+        total = polar_frequency(cs, ug[0], ug[1])
+    elif isinstance(cs, DirectProduct):
+        off = 0
+        for sub in cs.coordsystems:
+            if isinstance(sub, PolarCoordinates):
+                total = total + polar_frequency(sub, ug[off], ug[off + 1])
+            elif isinstance(sub, CurvilinearCoordinateSystem):
+                # an S2 or spherical factor must not fall into the polar
+                # formula (it would read the colatitude as a radius)
+                raise NotImplementedError(
+                    "CFL spacing for this DirectProduct factor.")
+            else:
+                for j, coord in enumerate(sub.coords):
+                    total = total + interval_frequency(coord, ug[off + j])
+            off += sub.dim
+    elif isinstance(cs, (CartesianCoordinates, Coordinate)):
+        for i, coord in enumerate(cs.coords):
+            total = total + interval_frequency(coord, ug[i])
+    else:
         raise NotImplementedError(
             f"CFL spacing for {type(cs).__name__}: dedalus_tpu_torch has "
-            "the Cartesian, polar, S2 and spherical spacings only")
-    total = 0.0
-    for i, coord in enumerate(cs.coords):
-        axis = dist.get_axis(coord)
-        basis = u.domain.bases[axis]
-        if basis is None:
-            continue
-        dx = _device_profile(interval_cfl_spacing(basis), axis, dist.dim, ug)
-        total = total + ug[i].abs() / dx
+            "the Cartesian, polar, direct-product, S2 and spherical "
+            "spacings only")
     if np.isscalar(total):
         total = ug.new_zeros(ug.shape[1:])
     return total

@@ -3,8 +3,9 @@ User-facing API: `import dedalus_tpu_torch.public as d3`
 (counterpart of dedalus_tpu/public.py; reference: dedalus/public.py:4-14).
 """
 
-from .core.coords import (Coordinate, CartesianCoordinates, PolarCoordinates,
-                          S2Coordinates, SphericalCoordinates)
+from .core.coords import (Coordinate, CartesianCoordinates, DirectProduct,
+                          PolarCoordinates, S2Coordinates,
+                          SphericalCoordinates)
 from .core.distributor import Distributor
 from .core.domain import Domain
 from .core.basis import (Jacobi, ChebyshevT, Legendre, RealFourier,

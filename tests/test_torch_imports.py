@@ -47,7 +47,8 @@ def test_scan_covers_the_package():
                  "dedalus_tpu_torch/core/solvers.py",
                  "dedalus_tpu_torch/extras/flow_tools.py",
                  "dedalus_tpu_torch/extras/bench_problems.py",
-                 "dedalus_tpu_torch/tools/carry.py"):
+                 "dedalus_tpu_torch/tools/carry.py",
+                 "dedalus_tpu_torch/core/cylinder.py"):
         assert must in names
 
 
@@ -77,6 +78,25 @@ def test_ball_public_api_without_jax():
             "from dedalus_tpu_torch.extras.bench_problems import ("
             "build_ball_convection, build_lane_emden); "
             "from dedalus_tpu_torch.libraries import zernike; "
+            "assert 'jax' not in sys.modules, 'jax imported'")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True)
+
+
+def test_cylinder_public_api_without_jax():
+    """The cylinder's public names (DirectProduct, its calculus module and
+    builders) import, and d3.DirectProduct(Coordinate, PolarCoordinates)
+    builds, in a fresh interpreter with no jax module loaded."""
+    import subprocess
+    import sys
+    code = ("import sys; "
+            "import dedalus_tpu_torch.public as d3; "
+            "c = d3.DirectProduct(d3.Coordinate('z'), "
+            "d3.PolarCoordinates('phi', 'r')); "
+            "assert c.dim == 3 and not c.right_handed; "
+            "from dedalus_tpu_torch.core import cylinder; "
+            "from dedalus_tpu_torch.extras.bench_problems import ("
+            "build_pipe_flow, build_cylinder_diffusion, "
+            "build_pipe_flow_evp, build_annulus_cylinder_poisson); "
             "assert 'jax' not in sys.modules, 'jax imported'")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True)
 

@@ -328,6 +328,41 @@ Phases (each prints its own lines; any failure exits non-zero):
      their serial runs), then a member detached and a fresh one attached
      at a block boundary (no new recording; the attached member equal to
      its serial run from the attach).
+ 24. The coupled pencils (coupled_phase). annulus_azncc256x64, the
+     slice's main path: the azimuthally varying NCC w = 1 + 0.3 r cos(phi)
+     of the JAX package's tests/test_polar_azimuthal_ncc.py:104 on the
+     annulus of radii (0.7, 1.8), f64, dealias 2, through
+     extras/bench_problems.py build_annulus_azncc; the NCC couples every
+     m group, so 'auto' takes the banded path with one pencil group,
+     asserted with its structure (pencils (1, 16896), q = 144, NB = 118,
+     576 pins). The LBVP w*u - lap(u) = g against its manufactured u:
+     build with its phases, the factor, POISSON_SOLVES warm solves
+     (median ms), launches = 1 + (1 + sweeps) a solve, no host sync in a
+     warm solve, own peak, the error <= AZNCC_BOUND; 64x32 forced banded
+     card vs CPU (u 1e-12 of the state, the taus 1e-10). The IVP (RK222
+     at dt 1e-3): build, the factoring first step and AZNCC_STEPS timed
+     ones (launches asserted, no host sync), a factor timed alone,
+     step_many bit-equal to the loop (steps/s, idle share and kernels a
+     step of each), the walls within 1e-10 of max |u|, max |u| decaying,
+     own peak; 64x32 forced banded card vs CPU after 10 steps. The kernel
+     at the LBVP factor's operators (G = 1, q = 144, k = 1), its Woodbury
+     form (k = 576) and the IVP factor's (k = 1). The disk (dense, counts
+     0): the azimuthally varying NCC LBVP at 32x16 and the Poisson under
+     matrix_coupling = [True, True] at 16x32, one pencil each, card vs
+     CPU to 1e-12, within 1e-10 of the manufactured solution.
+     poisson_rect120 (build_poisson_rect, two coupled axes, L singular by
+     its four corner modes; BANDED_MAX_DIAGS = 768) forced banded, q =
+     496, NB = 30, 480 pins: the same solve record, the floored pivots
+     read, within 1e-8 of exact and of its dense run on the card; 48x48
+     card vs CPU (u to 1e-12; the taus, determined only up to the corner
+     modes, recorded); the kernel at its operators (k = 1) and its
+     Woodbury form (k = 480). At both LBVP factors (annulus and
+     rectangle) the kernel is also held to the plain versions' backward
+     error through the pinned base (backward_witness). At 128x128 'auto'
+     takes banded at q = 528 and the build must raise the kernel's limit
+     error. joint_ncc64x32
+     (build_joint_ncc, dense): card vs CPU to 1e-12, within 1e-10 of its
+     target.
      Then the kernels line (banded_subst, banded_subst_bf16,
      banded_subst_T, banded_subst_T_bf16, each launched on some path of
      this run), the card line, and the result line.
@@ -431,6 +466,8 @@ WOODBURY_REPS = 3
 # plain versions differ by more); to BOUND at random operators of the
 # same shape
 CONDITIONED_FACTOR = 10
+# seeded draws of the operators' eps perturbation (backward_witness)
+SENSITIVITY_TRIALS = 3
 # rotconv's pencils have condition ~9.4e9: one solve of one system by
 # two LU implementations differs by ~1e-12 of the solution
 # (tests/test_torch_shell.py ROTCONV_ALGEBRAIC_BOUND). Card vs CPU after
@@ -489,6 +526,38 @@ FLEET_KERNEL_K = 64
 FLEET_PMDT_MEMBERS = 8
 FLEET_PMDT_DT_RANGE = (5e-3, 1e-2)
 FLEET_RTOL = 1e-12
+# phase 24, the coupled pencils: an m-coupled annulus (the azimuthally
+# varying NCC w = 1 + 0.3 r cos(phi) of the JAX package's
+# tests/test_polar_azimuthal_ncc.py:104) at the centrifugal-convection
+# example's 256x64, banded under 'auto' with one pencil group (the
+# structure asserted), as an LBVP against its manufactured solution and
+# as an RK222 IVP at AZNCC_DT; its small card vs CPU size forced banded
+AZNCC_SIZE = (256, 64)
+AZNCC_STRUCTURE = {"pencil_shape": [1, 16896], "q": 144, "NB": 118,
+                   "pins": 576}
+AZNCC_SMALL = (64, 32)
+AZNCC_STEPS = 20
+AZNCC_BOUND = 1e-10          # the JAX test's manufactured-solution bound
+# fields with no time derivative held card vs CPU at the algebraic bound
+# the repo uses elsewhere (DISK_ALGEBRAIC_BOUND); u to 1e-12 of the state
+AZNCC_DYNAMIC = ("u",)
+# the disk's coupled pencils (dense): the azimuthally varying NCC LBVP and
+# the Poisson under matrix_coupling, card vs CPU
+DISK_AZNCC_SIZE = (32, 16)
+DISK_COUPLED_SIZE = (16, 32)
+# the Chebyshev^2 Poisson rectangle (two coupled axes, singular L: four
+# corner modes) forced banded at RECT_N (q = 4 N + 16 = 496 <= MAX_Q), its
+# dense run beside it; at RECT_LIMIT_N 'auto' takes banded at q = 528,
+# past the kernel's limit, where the factor's first launch must raise
+RECT_N = 120
+RECT_STRUCTURE = {"q": 496, "NB": 30, "pins": 480}
+RECT_LIMIT_N = 128
+RECT_MAX_DIAGS = "768"
+RECT_BOUND = 1e-8
+# the joint f(x, z) NCC LBVP of the JAX package's tests/test_joint_ncc.py:70
+JOINT_SIZE = (64, 32)
+AZNCC_LBVP = "annulus_azncc%dx%d lbvp" % AZNCC_SIZE
+AZNCC_IVP = "annulus_azncc%dx%d ivp" % AZNCC_SIZE
 RESULTS = {}
 
 
@@ -556,19 +625,84 @@ def torch_item(dtype):
     return torch.empty((), dtype=dtype).element_size()
 
 
-def conditioned_bound(label, what, bound, gap):
+def conditioned_bound(label, what, bound, gap, capped=True):
     """A kernel check's bound at ill-conditioned operators: the larger of
     `bound` and CONDITIONED_FACTOR x `gap` (the same check between two
-    plain versions), at most ROTCONV_ALGEBRAIC_BOUND; fails where `gap`
-    itself exceeds that cap."""
-    if not gap <= ROTCONV_ALGEBRAIC_BOUND:
+    plain versions), at most ROTCONV_ALGEBRAIC_BOUND, failing where `gap`
+    itself exceeds that cap; neither limit holds where not `capped`
+    (there backward_witness holds the kernel to the plain versions'
+    backward error, whatever the conditioning)."""
+    if capped and not gap <= ROTCONV_ALGEBRAIC_BOUND:
         fail(f"kernel[{label}]: {what} differ by {gap:.3e} > "
              f"{ROTCONV_ALGEBRAIC_BOUND:g}")
-    return min(max(bound, CONDITIONED_FACTOR * gap), ROTCONV_ALGEBRAIC_BOUND)
+    bound = max(bound, CONDITIONED_FACTOR * gap)
+    return min(bound, ROTCONV_ALGEBRAIC_BOUND) if capped else bound
+
+
+def backward_witness(label, base, fsub, fp, out, ref, ref_cpu):
+    """The second witness at the operators of a factored pinned base
+    `base` = (bands (G, nd, n_pad) of B~ in full-lattice band storage,
+    kl, ku), which tells ill-conditioning from a kernel fault. For the
+    kernel's solution and the plain version's on the card and on the
+    CPU: the backward error, max over columns of |B~ y - f| / (|B~| |y|
+    + |f|) (infinity norms; the residual through the band matvec on the
+    card). A correct substitution leaves a residual as small as the
+    plain versions' even where its solution moves far from theirs; a
+    fault leaves a large one. And two readings of how far rounding moves
+    the solution at these operators, relative to max |y|: the plain
+    version's response to the operators times (1 + eps r), r standard
+    normal (the largest of SENSITIVITY_TRIALS seeded draws; a different
+    summation order rounds each product by about that much), and with k
+    > 1 columns the plain version on the card one column at a time
+    against it on all columns at once (the kernel tiles columns in its
+    own order). Returns the record; fails where the kernel's backward
+    error exceeds CONDITIONED_FACTOR x the larger plain one."""
+    import torch
+    from dedalus_tpu_torch.core.fusedstep import as_columns, \
+        substitution_plain
+    bands, kl, ku = base
+    width = bands.shape[-1]
+    norm = bands.abs().sum(1).amax(-1)[:, None]           # (G, 1)
+    f = as_columns(fp)
+
+    def backward(y):
+        y = as_columns(y)
+        yp = torch.nn.functional.pad(y, (kl, ku))
+        r = -f
+        for d in range(bands.shape[1]):
+            r = r + bands[:, d, None, :] * yp[..., d:d + width]
+        return float((r.abs().amax(-1) / (norm * y.abs().amax(-1)
+                                          + f.abs().amax(-1))).max())
+
+    rec = {"kernel": backward(out), "plain": backward(ref),
+           "plain_cpu": backward(ref_cpu.to(fp.device))}
+    gen = torch.Generator(device=fp.device).manual_seed(17)
+    eps = torch.finfo(ref.dtype).eps
+    moved = []
+    for _ in range(SENSITIVITY_TRIALS):
+        nudged = {k: v * (1 + eps * torch.randn(
+            v.shape, generator=gen, device=v.device, dtype=v.dtype))
+            for k, v in fsub.items()}
+        moved.append(float((substitution_plain(nudged, fp) - ref).abs().max()
+                           / ref.abs().max()))
+        del nudged
+    rec["operator_sensitivity_rel"] = max(moved)
+    if f.shape[1] > 1:
+        cols = torch.stack([substitution_plain(fsub, f[:, j])
+                            for j in range(f.shape[1])], dim=1)
+        rec["plain_columns_vs_all_rel"] = float(
+            (cols - as_columns(ref)).abs().max() / ref.abs().max())
+        del cols
+    rec["bound"] = CONDITIONED_FACTOR * max(rec["plain"], rec["plain_cpu"])
+    if not rec["kernel"] <= rec["bound"]:
+        fail(f"kernel[{label}]: backward error {rec['kernel']:.3e} > "
+             f"{rec['bound']:.3e} ({CONDITIONED_FACTOR}x the plain "
+             f"versions'): {rec}")
+    return rec
 
 
 def check_kernel(label, fsub, fp, transposed=False, reps=25,
-                 conditioned=False):
+                 conditioned=False, base=None):
     """Kernel vs plain on the same inputs; returns the measured record.
     The right-hand side is first scaled so that the plain solution has
     max |y| = 1 (the substitution is linear; the RB factor operators map
@@ -584,7 +718,11 @@ def check_kernel(label, fsub, fp, transposed=False, reps=25,
     CPU, and the kernel is held to the larger of BOUND and
     CONDITIONED_FACTOR times that plain-vs-plain difference, capped at
     ROTCONV_ALGEBRAIC_BOUND (as is the identity's bound); a
-    plain-vs-plain difference above the cap fails."""
+    plain-vs-plain difference above the cap fails. With `base` (the
+    pinned base the operators factor, see backward_witness) as well, the
+    kernel is held to its backward error, and its forward bound is
+    CONDITIONED_FACTOR times the largest of the plain version's card vs
+    CPU gap and backward_witness's two readings, uncapped."""
     import torch
     from dedalus_tpu_torch.core import fusedstep
     dtype = str(fp.dtype).replace("torch.", "")
@@ -601,18 +739,25 @@ def check_kernel(label, fsub, fp, transposed=False, reps=25,
         fail(f"kernel[{label}] returned non-finite values")
     abs_err = float((out - ref).abs().max())
     rel_err = abs_err / float(ref.abs().max())
-    bound, floor = BOUND[dtype], None
+    bound, floor, witness = BOUND[dtype], None, None
     if conditioned:
         ref_cpu = plain({k: v.cpu() for k, v in fsub.items()}, fp.cpu())
         floor = float((ref.cpu() - ref_cpu).abs().max()
                       / ref_cpu.abs().max())
+        gap = floor
+        if base is not None:
+            witness = backward_witness(label, base, fsub, fp, out, ref,
+                                       ref_cpu)
+            gap = max(gap, witness["operator_sensitivity_rel"],
+                      witness.get("plain_columns_vs_all_rel", 0.0))
         del ref_cpu
-        bound = conditioned_bound(label, "the plain version on the card "
-                                  "and on the CPU", bound, floor)
+        bound = conditioned_bound(label, "two plain versions", bound, gap,
+                                  capped=base is None)
     if not rel_err <= bound:
         fail(f"kernel[{label}] disagrees with the plain version: max "
              f"relative error {rel_err:.3e} > {bound:.3e} (the plain "
-             f"version on the card and on the CPU differ by {floor})")
+             f"version on the card and on the CPU differ by {floor}; "
+             f"witness {witness})")
     launch = lambda: kernel(fsub, fp)  # noqa: E731
     warm = min(3, reps)
     ms = median_ms(launch, reps=reps, warm=warm)
@@ -639,6 +784,7 @@ def check_kernel(label, fsub, fp, transposed=False, reps=25,
            "NB": NB, "k": k,
            "max_abs_err": abs_err, "max_rel_err": rel_err,
            "bound_rel": bound, "plain_card_vs_cpu_rel": floor,
+           "backward_error": witness,
            "ms": ms, "cold_ms": cold_ms,
            "stream_ms": stream_ms, "plain_ms": plain_ms,
            "bytes": nbytes, "flops": flops,
@@ -3561,6 +3707,403 @@ def fleet_phase(card):
     return summary
 
 
+def lbvp_card_vs_cpu(label, build, held, other_bound, bound=1e-12):
+    """The same small LBVP solved on the card and on the CPU (held against
+    the JAX package by tests/test_torch_*.py): each variable's max
+    difference relative to the CPU solution's largest coefficient. The
+    variables in `held` agree to `bound`, the others to `other_bound`
+    (None: recorded only)."""
+    import numpy as np
+    runs = {}
+    for device in ("cuda", "cpu"):
+        solver = build(device)
+        solver.solve()
+        runs[device] = {v.name: np.array(v["c"]) for v in solver.variables}
+    card, cpu = runs["cuda"], runs["cpu"]
+    scale = max(float(np.abs(a).max()) for a in cpu.values())
+    errs = {k: float(np.max(np.abs(card[k] - cpu[k])) / scale) for k in cpu}
+    log(f"{label} cuda vs cpu: " + json.dumps(errs))
+    bad = {k: v for k, v in errs.items()
+           if not v <= (bound if k in held else (
+               float("inf") if other_bound is None else other_bound))}
+    if bad:
+        fail(f"{label} on the card disagrees with the CPU: {bad}")
+    return errs
+
+
+def coupled_structure(label, solver, want):
+    """Assert the banded structure `want` ({pencil_shape, q, NB, pins})
+    of a built solver; returns its record."""
+    ops, st = solver.ops, solver.structure
+    got = {"ops": ops.kind, "pencil_shape": list(solver.pencil_shape)}
+    if ops.kind == "banded":
+        got.update(q=ops.q, NB=ops.NB, pins=ops.t, kl=st.kl, ku=st.ku,
+                   S=st.S)
+    if ops.kind != "banded" or any(got.get(k) != v for k, v in want.items()):
+        fail(f"{label}: {got}, not banded with {want}")
+    return got
+
+
+def wall_values(u, radii):
+    """max |u| at each of `radii` (the annulus walls)."""
+    import numpy as np
+    import dedalus_tpu_torch.public as d3
+    return [float(np.abs(np.asarray(d3.Interpolate(u, "r", r).evaluate()[
+        "g"])).max()) for r in radii]
+
+
+def substitution_kernels(label, solver, aux, woodbury=True):
+    """The kernel against its plain version at a factor's own operators:
+    k = 1 (a solve) and, with `woodbury`, the factor's Woodbury form (the
+    one-hot E at the pins: k = pins columns, the launch the factor makes
+    once). Each held to 1e-12 of the plain solution, or 10x the plain
+    versions' gap (check_kernel's conditioned bound); at a boundary value
+    problem's factor (the aux keeps its matrix), also to the backward
+    error of the plain versions through the pinned base."""
+    import torch
+    ops = solver.ops
+    fsub = {k: aux["fsub"][k] for k in ("FwdOp", "BwdOp", "lastOp")}
+    G = solver.pencil_shape[0]
+    base = None
+    if "A" in aux:
+        base = (ops._pin(ops._expand_bands(aux["A"], 0, G)), ops.kl, ops.ku)
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    fp = torch.randn((G, ops.n_pad), generator=gen, device="cuda",
+                     dtype=torch.float64)
+    out = {"k1": check_kernel(f"{label}-factors", fsub, fp,
+                              conditioned=True, base=base)}
+    del fp
+    if woodbury:
+        E = torch.zeros((G, ops.t, ops.n_pad), dtype=torch.float64,
+                        device="cuda")
+        E[:, torch.arange(ops.t, device="cuda"), ops._pin_pos_t] = 1.0
+        out["woodbury"] = check_kernel(f"{label}-factors-woodbury", fsub,
+                                       E, reps=WOODBURY_REPS,
+                                       conditioned=True, base=base)
+        del E
+    del base
+    release()
+    return out
+
+
+def solve_cell(label, solver, u, exact, bound):
+    """A built LBVP's first solve, its error against `exact`, the warm
+    solve's median ms (POISSON_SOLVES solves, CUDA events), host syncs a
+    warm solve (0), one factor timed alone, and the substitution
+    launches from the build's count on: 1 (the build's Woodbury solve)
+    + (1 + sweeps) a solve, asserted."""
+    import numpy as np
+    import torch
+    from dedalus_tpu_torch.core import fusedstep
+    ops = solver.ops
+    rec = {}
+    t0 = time.perf_counter()
+    solver.solve()
+    torch.cuda.synchronize()
+    rec["first_solve_s"] = time.perf_counter() - t0
+    rec["error"] = float(np.abs(np.asarray(u["g"]) - exact).max())
+    rec["solve_ms"] = median_ms(solver.solve, reps=POISSON_SOLVES)
+    rec["host_syncs_per_solve"], rec["host_sync_messages"] = \
+        host_syncs(solver.solve, 1)
+    solves = 1 + 3 + POISSON_SOLVES + 1
+    rec["launches"] = fusedstep.LAUNCHES["banded_subst"]
+    # a pin swap factors once more (SolverBase.factor_checked)
+    rec["pin_swaps"] = solver.structure.pin_swaps
+    rec["expected_launches"] = (1 + rec["pin_swaps"] if ops.t else 0) \
+        + solves * (1 + ops.sweeps)
+    rec["floored_pivots"] = int(solver.floored_pivots.sum())
+    t0 = time.perf_counter()
+    ops.factor(solver.L_mat)
+    torch.cuda.synchronize()
+    rec["factor_s"] = time.perf_counter() - t0
+    log(f"{label} " + json.dumps(rec))
+    if not rec["error"] <= bound:
+        fail(f"{label}: {rec['error']:.3e} from the exact solution > "
+             f"{bound:g}")
+    if rec["launches"] != rec["expected_launches"]:
+        fail(f"{label}: {rec['launches']} kernel launches, expected "
+             f"{rec['expected_launches']}")
+    if rec["host_syncs_per_solve"]:
+        fail(f"{label}: {rec['host_syncs_per_solve']} host "
+             f"synchronizations in a warm solve(): "
+             f"{rec['host_sync_messages']}")
+    return rec
+
+
+def azncc_lbvp_phase(size):
+    """annulus_azncc LBVP at `size`: 'auto' takes the banded path with
+    one pencil group (AZNCC_STRUCTURE asserted), solved against its
+    manufactured solution (AZNCC_BOUND). Returns (record, kernels)."""
+    import torch
+    from dedalus_tpu_torch.extras.bench_problems import build_annulus_azncc
+    label = "annulus_azncc%dx%d lbvp" % size
+    small = "annulus_azncc%dx%d lbvp banded" % AZNCC_SMALL
+    rec = {"card_vs_cpu_rel": lbvp_card_vs_cpu(
+        small, lambda device: build_annulus_azncc(
+            *AZNCC_SMALL, "lbvp", matsolver="banded", device=device)[0],
+        AZNCC_DYNAMIC, DISK_ALGEBRAIC_BOUND)}
+    release()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    reset_launches()
+    t0 = time.perf_counter()
+    solver, u, exact = build_annulus_azncc(*size, "lbvp", device="cuda")
+    torch.cuda.synchronize()
+    rec["build_s"] = time.perf_counter() - t0
+    rec["build_phases_s"] = dict(solver.build_seconds)
+    rec.update(coupled_structure(label, solver, AZNCC_STRUCTURE))
+    rec.update(solve_cell(label, solver, u, exact, AZNCC_BOUND))
+    rec["own_peak_GB"] = (torch.cuda.max_memory_allocated() - before) / 1e9
+    kernels = substitution_kernels(label, solver, solver._aux)
+    log(f"{label} " + json.dumps({k: rec[k] for k in (
+        "build_s", "build_phases_s", "factor_s", "solve_ms", "error",
+        "launches", "own_peak_GB", "floored_pivots")}))
+    del solver, u
+    release()
+    return rec, kernels
+
+
+def azncc_ivp_phase(size, steps):
+    """annulus_azncc IVP at `size`: the same structure, RK222 at AZNCC_DT
+    from the manufactured profile: the factoring first step and `steps`
+    timed ones (launches asserted, no host sync), a replayed step_many
+    block bit-equal to a loop (idle share and kernels a step of each),
+    the walls within 1e-10 of max |u|, max |u| decaying (w > 0 damps
+    every mode)."""
+    import numpy as np
+    import torch
+    from dedalus_tpu_torch.core import fusedstep
+    from dedalus_tpu_torch.extras.bench_problems import (AZNCC_DT,
+                                                          AZNCC_RADII,
+                                                          build_annulus_azncc)
+    label = "annulus_azncc%dx%d ivp" % size
+    small = "annulus_azncc%dx%d ivp banded" % AZNCC_SMALL
+    rec = {"card_vs_cpu_rel": polar_card_vs_cpu(
+        small, lambda device: (build_annulus_azncc(
+            *AZNCC_SMALL, "ivp", matsolver="banded", device=device)[0],
+            AZNCC_DT), 10, AZNCC_DYNAMIC, DISK_ALGEBRAIC_BOUND)}
+    release()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    solver, u, exact = build_annulus_azncc(*size, "ivp", device="cuda")
+    torch.cuda.synchronize()
+    rec["build_s"] = time.perf_counter() - t0
+    rec["build_phases_s"] = dict(solver.build_seconds)
+    rec.update(coupled_structure(label, solver, AZNCC_STRUCTURE))
+    ts = solver.timestepper
+    u0 = float(np.abs(exact).max())
+    reset_launches()
+    t0 = time.perf_counter()
+    solver.step(AZNCC_DT)
+    torch.cuda.synchronize()
+    rec["first_step_s"] = time.perf_counter() - t0
+    rec["dt"] = AZNCC_DT
+    rec["steps"] = steps
+    rec["steps_per_s"] = steps_per_s(solver, AZNCC_DT, steps)
+    rec["launches"] = fusedstep.LAUNCHES["banded_subst"]
+    rec["expected_launches"], _ = expected_launches(
+        solver, 1 + steps, factorizations=ts.factorizations)
+    if rec["launches"] != rec["expected_launches"]:
+        fail(f"{label}: {rec['launches']} kernel launches, expected "
+             f"{rec['expected_launches']}")
+    check_no_host_syncs(label, rec, solver, AZNCC_DT)
+    t0 = time.perf_counter()
+    aux = solver.ops.factor_lincomb(1.0, solver.M_mat, AZNCC_DT,
+                                    solver.L_mat)
+    torch.cuda.synchronize()
+    rec["factor_s"] = time.perf_counter() - t0
+    del aux
+    rec["step_many"] = step_many_check(label, solver, AZNCC_DT, steps, 10)
+    if not rec["step_many"]["replay_bit_equal"]:
+        fail(f"{label}: the replayed block is not bit-equal to the loop")
+    rec["floored_pivots"] = int(solver.floored_pivots.sum())
+    ug = np.asarray(u["g"])
+    umax = float(np.abs(ug).max())
+    rec["max_u"] = [u0, umax]
+    rec["walls_rel"] = [w / umax for w in wall_values(u, AZNCC_RADII)]
+    rec["own_peak_GB"] = (torch.cuda.max_memory_allocated() - before) / 1e9
+    rec["iteration"] = solver.iteration
+    log(f"{label} " + json.dumps({k: v for k, v in rec.items()
+                                  if k != "step_many"}))
+    if not (np.isfinite(ug).all() and umax < u0):
+        fail(f"{label}: max |u| {u0} -> {umax} (finite and decaying "
+             "expected)")
+    if not max(rec["walls_rel"]) <= 1e-10:
+        fail(f"{label}: walls {rec['walls_rel']} > 1e-10 of max |u|")
+    kernels = substitution_kernels(label, solver, step_aux(solver),
+                                   woodbury=False)
+    del solver, u
+    release()
+    return rec, kernels
+
+
+def disk_coupled_phase():
+    """The disk's m-coupled pencils (dense: the kernel's counts stay 0):
+    the azimuthally varying NCC LBVP and the Poisson under
+    matrix_coupling, each card vs CPU to 1e-12 and within 1e-10 of its
+    manufactured solution on the card, its solve ms."""
+    import numpy as np
+    import torch
+    from dedalus_tpu_torch.extras.bench_problems import build_disk_azncc
+    out = {}
+    for kind, size in (("ncc", DISK_AZNCC_SIZE),
+                       ("coupled_poisson", DISK_COUPLED_SIZE)):
+        label = "disk_azncc%dx%d %s" % (size + (kind,))
+
+        def run():
+            rec = {"card_vs_cpu_rel": lbvp_card_vs_cpu(
+                label, lambda device: build_disk_azncc(
+                    *size, kind, device=device)[0], ("u", "tau"), None)}
+            t0 = time.perf_counter()
+            solver, u, exact = build_disk_azncc(*size, kind, device="cuda")
+            torch.cuda.synchronize()
+            rec["build_s"] = time.perf_counter() - t0
+            rec["build_phases_s"] = dict(solver.build_seconds)
+            rec["pencil_shape"] = list(solver.pencil_shape)
+            rec["ops"] = solver.ops.kind
+            solver.solve()
+            rec["error"] = float(np.abs(np.asarray(u["g"]) - exact).max())
+            rec["solve_ms"] = median_ms(solver.solve, reps=POISSON_SOLVES)
+            rec["host_syncs_per_solve"], _ = host_syncs(solver.solve, 1)
+            log(f"{label} " + json.dumps(rec))
+            if solver.pencil_shape[0] != 1 or not rec["error"] <= 1e-10 \
+                    or rec["host_syncs_per_solve"]:
+                fail(f"{label}: {rec}")
+            return rec
+
+        out[label] = dense_path(label, run)
+        release()
+    return out
+
+
+def rect_phase(N, limit_N):
+    """poisson_rect at N forced banded (RECT_STRUCTURE asserted; the
+    corner modes make L singular: the floored pivots read), its dense run
+    on the card beside it (both within RECT_BOUND of the exact solution
+    and of each other), card vs CPU at 48x48 forced banded; the kernel at
+    its factor's operators; then at limit_N under 'auto' the build must
+    raise the kernel's limit error. Returns (record, kernels)."""
+    import numpy as np
+    import torch
+    from dedalus_tpu_torch.extras.bench_problems import build_poisson_rect
+    from dedalus_tpu_torch.tools.config import config
+    label = f"poisson_rect{N}"
+    old = config["linear algebra"].get("BANDED_MAX_DIAGS", "384")
+    config["linear algebra"]["BANDED_MAX_DIAGS"] = RECT_MAX_DIAGS
+    try:
+        # the taus are determined only up to the corner modes' null
+        # directions: recorded, not compared
+        rec = {"card_vs_cpu_rel": lbvp_card_vs_cpu(
+            "poisson_rect48 banded", lambda device: build_poisson_rect(
+                48, "banded", device=device)[0], ("u",), None)}
+        release()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        reset_launches()
+        t0 = time.perf_counter()
+        solver, u, exact = build_poisson_rect(N, "banded", device="cuda")
+        torch.cuda.synchronize()
+        rec["build_s"] = time.perf_counter() - t0
+        rec["build_phases_s"] = dict(solver.build_seconds)
+        rec.update(coupled_structure(label, solver, RECT_STRUCTURE))
+        rec.update(solve_cell(label, solver, u, exact, RECT_BOUND))
+        rec["own_peak_GB"] = (torch.cuda.max_memory_allocated()
+                              - before) / 1e9
+        ub = np.array(u["g"])
+        kernels = substitution_kernels(label, solver, solver._aux)
+        del solver, u
+        release()
+
+        def dense():
+            solver, u, _ = build_poisson_rect(N, "dense", device="cuda")
+            t0 = time.perf_counter()
+            solver.solve()
+            torch.cuda.synchronize()
+            out = {"build_phases_s": dict(solver.build_seconds),
+                   "first_solve_s": time.perf_counter() - t0,
+                   "solve_ms": median_ms(solver.solve, reps=5, warm=1),
+                   "floored_pivots": int(solver.floored_pivots.sum()),
+                   "error": float(np.abs(np.asarray(u["g"])
+                                         - exact).max()),
+                   "banded_vs_dense": float(np.abs(ub - np.asarray(
+                       u["g"])).max())}
+            return out
+
+        rec["dense"] = dense_path(label + " dense", dense)
+        release()
+        log(f"{label} dense " + json.dumps(rec["dense"]))
+        if not (rec["dense"]["error"] <= RECT_BOUND
+                and rec["dense"]["banded_vs_dense"] <= RECT_BOUND):
+            fail(f"{label}: dense {rec['dense']}")
+        t0 = time.perf_counter()
+        try:
+            build_poisson_rect(limit_N, "auto", device="cuda")
+        except ValueError as exc:
+            rec["limit"] = {"N": limit_N, "raised": str(exc),
+                            "s": time.perf_counter() - t0}
+        else:
+            fail(f"poisson_rect{limit_N}: solved past the kernel's limit")
+        if "exceeds the kernel's limit" not in rec["limit"]["raised"]:
+            fail(f"poisson_rect{limit_N}: {rec['limit']['raised']}")
+        log(f"poisson_rect{limit_N} " + json.dumps(rec["limit"]))
+    finally:
+        config["linear algebra"]["BANDED_MAX_DIAGS"] = old
+    release()
+    return rec, kernels
+
+
+def joint_ncc_phase(size):
+    """The joint f(x, z) NCC LBVP (dense, one pencil): card vs CPU to
+    1e-12, within 1e-10 of its target on the card, its solve ms."""
+    import numpy as np
+    import torch
+    from dedalus_tpu_torch.extras.bench_problems import build_joint_ncc
+    label = "joint_ncc%dx%d" % size
+
+    def run():
+        rec = {"card_vs_cpu_rel": lbvp_card_vs_cpu(
+            label, lambda device: build_joint_ncc(*size, device=device)[0],
+            ("u",), None)}
+        t0 = time.perf_counter()
+        solver, u, target = build_joint_ncc(*size, device="cuda")
+        torch.cuda.synchronize()
+        rec["build_s"] = time.perf_counter() - t0
+        rec["build_phases_s"] = dict(solver.build_seconds)
+        rec["pencil_shape"] = list(solver.pencil_shape)
+        solver.solve()
+        rec["error"] = float(np.abs(np.asarray(u["g"]) - target).max())
+        rec["solve_ms"] = median_ms(solver.solve, reps=POISSON_SOLVES)
+        rec["host_syncs_per_solve"], _ = host_syncs(solver.solve, 1)
+        log(f"{label} " + json.dumps(rec))
+        if solver.pencil_shape[0] != 1 or not rec["error"] <= 1e-10 \
+                or rec["host_syncs_per_solve"]:
+            fail(f"{label}: {rec}")
+        return rec
+
+    rec = dense_path(label, run)
+    release()
+    return rec
+
+
+def coupled_phase(card):
+    """Phase 24: the coupled pencils. Returns the phase's record; its
+    kernel records under "kernels"."""
+    out = {"card": card}
+    lbvp, lk = azncc_lbvp_phase(AZNCC_SIZE)
+    ivp, ik = azncc_ivp_phase(AZNCC_SIZE, AZNCC_STEPS)
+    rect, rk = rect_phase(RECT_N, RECT_LIMIT_N)
+    out.update({AZNCC_LBVP: lbvp, AZNCC_IVP: ivp, f"poisson_rect{RECT_N}":
+                rect, **disk_coupled_phase(),
+                "joint_ncc%dx%d" % JOINT_SIZE: joint_ncc_phase(JOINT_SIZE)})
+    out["kernels"] = {AZNCC_LBVP: lk["k1"],
+                      AZNCC_LBVP + " woodbury": lk["woodbury"],
+                      AZNCC_IVP: ik["k1"],
+                      f"poisson_rect{RECT_N}": rk["k1"],
+                      f"poisson_rect{RECT_N} woodbury": rk["woodbury"]}
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[1])
     parser.add_argument("--steps", type=int, default=50)
@@ -4120,6 +4663,15 @@ def main():
     # around each fleet) and diffusion64_ensemble (dense)
     fleet_phase(card)
     phase_done("23 fleets")
+
+    # --------------------------------------------------------- phase 24
+    # the coupled pencils: the m-coupled annulus at 256x64 (banded, one
+    # pencil group: its counts set to 0 around its build and solves, and
+    # around its steps), the disk's coupled pencils (dense), the
+    # Chebyshev^2 rectangle at q = 496 and past the kernel's limit, and a
+    # joint NCC (dense)
+    coupled = RESULTS["coupled"] = coupled_phase(card)
+    phase_done("24 coupled pencils")
     # times and bound at each kernel's main path shapes (the solve's
     # kernel at rb3d_128's own factor operators, q = 80, f64; the
     # transposed solve's at the rb2048x1024 shapes, the gradients' main
@@ -4167,7 +4719,13 @@ def main():
                   for cell, rec in RESULTS["fleets"].items()
                   for N, run in rec["fleets"].items() if "launches" in run},
                "rb256x64_ensemble per-member dt": RESULTS["fleets"][
-                   "rb256x64_ensemble"]["per_member_dt"]["launches"]}
+                   "rb256x64_ensemble"]["per_member_dt"]["launches"],
+               AZNCC_LBVP: coupled[AZNCC_LBVP]["launches"],
+               AZNCC_IVP: coupled[AZNCC_IVP]["launches"],
+               AZNCC_IVP + " step_many": coupled[AZNCC_IVP][
+                   "step_many"]["launches"]["replay"],
+               f"poisson_rect{RECT_N}": coupled[f"poisson_rect{RECT_N}"][
+                   "launches"]}
     # each transposed entry's main path: the rb2048x1024 value_and_grad,
     # and for the bf16 one the sphere's gradient under the bf16 ladder
     main_grad = {"banded_subst_T": grads[f"rb{Nx}x{Nz}"]["runs"][0],
@@ -4209,7 +4767,8 @@ def main():
                               complex_kernels[1]),
                              (f"rb256x64_ensemble k={FLEET_KERNEL_K}",
                               RESULTS["fleets"]["rb256x64_ensemble"][
-                                  "fleets"][FLEET_KERNEL_K]["kernel"]))},
+                                  "fleets"][FLEET_KERNEL_K]["kernel"]),
+                             *coupled["kernels"].items())},
         "checks": checks}, {
         # the bf16 instantiation (SOLVE_DTYPE = bf16): its main path is
         # rb256x64 under the bf16 ladder, its times at that factor's

@@ -271,6 +271,15 @@ def _interleave_gs(M, nout, nin, gs, X):
     return K[perm(nout)][:, perm(nin)]
 
 
+def _scratch_copy(field):
+    """A new field holding a copy of `field`'s coefficients, to read
+    at other scales or in grid space without touching `field`."""
+    work = field.dist.Field(bases=field.domain.bases,
+                            tensorsig=field.tensorsig, dtype=field.dtype)
+    work["c"] = np.array(field["c"])
+    return work
+
+
 class ProductBase(Future):
     """Shared NCC machinery for Multiply/Dot: grid-space products that become
     linear matrices when one side has no problem variables."""
@@ -316,12 +325,20 @@ class ProductBase(Future):
         return ncc_index, ncc, self.args[op_index]
 
     def _ncc_axis_terms(self, ncc, comp_index, operand):
-        """[(scalar, descrs)] kron terms multiplying by ncc component
-        `comp_index`: a constant NCC is a scalar multiplier; an NCC varying
-        along one Jacobi axis builds that axis's multiplication matrix; an
-        angularly constant annulus NCC its radial multiplication matrix
-        (an azimuthally varying one never gets here: the layout refuses
-        it, subsystems._ncc_forced_coupled_axes)."""
+        """
+        [(scalar, descrs)] kron terms multiplying by ncc component
+        `comp_index` (dedalus_tpu/core/arithmetic.py:307). A constant NCC
+        is a scalar multiplier; an NCC varying along one Jacobi or
+        Fourier axis builds that axis's multiplication matrix; an
+        angularly constant annulus NCC its radial multiplication matrix.
+        An NCC varying JOINTLY along several 1-D axes (a 2-D background
+        U(x, z)) expands modally along its first varying axis, one kron
+        term per significant mode (`_ncc_axis_terms_from`); an
+        azimuthally varying annulus NCC expands per azimuth mode onto the
+        m-coupled pencil (`_polar_coupled_azimuth_terms`). A term's
+        scalar may be a component-mixing matrix (the real-pair expansion
+        of the latter).
+        """
         bases = list(ncc.domain.bases)
         if ncc.tensorsig and any(
                 b is not None and b.dim > 1
@@ -331,7 +348,151 @@ class ProductBase(Future):
                 "Tensor-valued NCCs on curvilinear bases route through the "
                 "spin assembly paths, not the per-axis path.")
         ccomp = np.asarray(ncc["c"])[comp_index]  # host transform of NCC data
-        return [self._ncc_axis_matrices_from(ccomp, bases, operand)]
+        # the classifier that forced the layout's m-coupling
+        # (subsystems._ncc_forced_coupled_axes) decides the route, read
+        # off a scratch copy (a grid read of the NCC itself would move
+        # its data through the transforms once per group)
+        for ax0, nb in enumerate(bases):
+            if (nb is not None and nb.dim == 2
+                    and hasattr(nb, "radial_multiplication_matrix")
+                    and hasattr(nb, "azimuth_basis")
+                    and ax0 == nb.first_axis
+                    and ProductBase.polar_azimuth_varies(_scratch_copy(ncc),
+                                                         nb)):
+                return self._polar_coupled_azimuth_terms(
+                    ccomp, bases, operand, ax0)
+        return self._ncc_axis_terms_from(ccomp, bases, operand)
+
+    def _ncc_axis_terms_from(self, ccomp, bases, operand):
+        """The modal expansion of `_ncc_axis_terms` over an explicit
+        coefficient array and per-axis basis list
+        (dedalus_tpu/core/arithmetic.py:345): exact by the linearity of
+        the multiplication matrices in the NCC coefficients, one kron
+        term per mode j of the first varying 1-D axis whose slice is
+        significant, recursing on the slice."""
+        one_d = [ax for ax in range(self.dist.dim)
+                 if bases[ax] is not None and bases[ax].dim == 1
+                 and ccomp.shape[ax] > 1]
+        if len(one_d) < 2:
+            return [self._ncc_axis_matrices_from(ccomp, bases, operand)]
+        a1 = one_d[0]
+        nb = bases[a1]
+        ob = operand.domain.bases[a1]
+        n1 = ccomp.shape[a1]
+        tol = self._ncc_data_cutoff(ccomp) * max(np.abs(ccomp).max(), 1e-300)
+        sub_bases = list(bases)
+        sub_bases[a1] = None
+        terms = []
+        for j in range(n1):
+            slice_j = np.take(ccomp, [j], axis=a1)
+            if np.abs(slice_j).max() <= tol:
+                continue
+            e_j = np.zeros(n1)
+            e_j[j] = 1.0
+            if ob is None:
+                descr_j = ("full", sparsify(e_j.reshape(-1, 1), 1e-13))
+            elif isinstance(nb, Jacobi):
+                descr_j = ("full", sparsify(
+                    ob.multiplication_matrix(e_j, nb, dk_out=-ob.k), 1e-13))
+            elif hasattr(nb, "multiplication_matrix") and nb.separable:
+                descr_j = ("full", sparsify(
+                    ob.multiplication_matrix(e_j, nb), 1e-13))
+            else:
+                raise NonlinearOperatorError(
+                    f"LHS NCCs may not vary along basis {nb!r}.")
+            for scalar, descrs in self._ncc_axis_terms_from(
+                    slice_j, sub_bases, operand):
+                descrs = list(descrs)
+                descrs[a1] = descr_j
+                terms.append((scalar, descrs))
+        return terms
+
+    def _polar_coupled_azimuth_terms(self, ccomp, bases, operand, ax0):
+        """Kron terms of an azimuthally varying annulus NCC (scalar data;
+        dedalus_tpu/core/arithmetic.py:385): one term per significant
+        azimuth mode j,
+
+            (azimuth convolution of mode j) kron (radial mult of f_j(r)),
+
+        on the layout-coupled azimuth axis (whole-axis convolution
+        matrices). The annulus radial space is m-independent, so the
+        radial factor is one multiplication matrix per mode.
+
+        Real-dtype TENSOR operands store spin-recombined (cos, -sin)
+        pairs, and the recombination does not commute with the azimuth
+        convolution: the coordinate-component convolution is conjugated
+        by the stored recombination W = Re(U) (x) I2 + Im(U) (x) J, which
+        expands each mode's term into at most four kron terms with
+        component-mixing tensor factors:
+            W_out (I_c (x) A (x) R) W_in^dagger
+              =   Re(Uo)Re(Ui)^T (x) A        (x) R
+                - Re(Uo)Im(Ui)^T (x) A Jz_in  (x) R
+                + Im(Uo)Re(Ui)^T (x) Jz_out A (x) R
+                - Im(Uo)Im(Ui)^T (x) Jz_out A Jz_in (x) R
+        with Jz = I_groups (x) PAIR_J on the interleaved azimuth axis.
+        Scalar operands (U = 1) reduce to the single real term; complex
+        dtypes keep the spin-diagonal convolution."""
+        nb = bases[ax0]
+        r_axis = ax0 + 1
+        ob_pol = operand.domain.bases[ax0]
+        if ob_pol is None or not hasattr(ob_pol, "azimuth_basis"):
+            raise NonlinearOperatorError(
+                "Azimuthally-varying polar NCCs require the operand on a "
+                "polar basis too.")
+        real_tensor = bool(operand.tensorsig) \
+            and not is_complex_dtype(operand.dtype)
+        mixers = [(None, 0, 0)]
+        if real_tensor:
+            from .curvilinear import recombination_matrix
+            cs = nb.cs
+            Uo = recombination_matrix(tuple(self.tensorsig), cs)
+            Ui = recombination_matrix(tuple(operand.tensorsig), cs)
+            mixers = [
+                (Uo.real @ Ui.real.T, 0, 0),
+                (-(Uo.real @ Ui.imag.T), 0, 1),
+                (Uo.imag @ Ui.real.T, 1, 0),
+                (-(Uo.imag @ Ui.imag.T), 1, 1),
+            ]
+        moved = np.moveaxis(ccomp, (ax0, r_axis), (0, 1))
+        if moved.size != moved.shape[0] * moved.shape[1]:
+            raise NonlinearOperatorError(
+                "Azimuthally-varying polar NCCs may not vary along "
+                "additional axes.")
+        az_r = moved.reshape(moved.shape[0], moved.shape[1])
+        tol = self._ncc_data_cutoff(az_r) * max(np.abs(az_r).max(), 1e-300)
+        dim = self.dist.dim
+        terms = []
+        for j in range(az_r.shape[0]):
+            prof = az_r[j]
+            if np.abs(prof).max() <= tol:
+                continue
+            e_j = np.zeros(ccomp.shape[ax0], dtype=az_r.dtype)
+            e_j[j] = 1.0
+            A = sp.csr_matrix(ob_pol.azimuth_basis.multiplication_matrix(
+                e_j, nb.azimuth_basis))
+            R = sparsify(ob_pol.radial_multiplication_matrix(prof, nb.k,
+                                                             k_out=0),
+                         self._ncc_sparsify_cutoff(prof))
+            for mix, left_j, right_j in mixers:
+                if mix is not None and np.abs(mix).max() < 1e-14:
+                    continue
+                Ax = A
+                if right_j:
+                    Ax = Ax @ sp.kron(sp.identity(A.shape[1] // 2), PAIR_J,
+                                      format="csr")
+                if left_j:
+                    Ax = sp.kron(sp.identity(A.shape[0] // 2), PAIR_J,
+                                 format="csr") @ Ax
+                descrs = [None] * dim
+                descrs[ax0] = ("full", sparsify(Ax, 1e-14))
+                descrs[r_axis] = ("full", R)
+                terms.append((mix, descrs))
+        if not terms:
+            descrs = [None] * dim
+            descrs[ax0] = ("full", sp.csr_matrix(
+                (ccomp.shape[ax0], ccomp.shape[ax0])))
+            terms.append((None, descrs))
+        return terms
 
     def _ncc_axis_matrices_from(self, ccomp, ncc_bases, operand):
         """Per-axis matrices for a single-varying-axis coefficient array
@@ -346,11 +507,9 @@ class ProductBase(Future):
                 axis += 1
             elif isinstance(nb, Jacobi):
                 # collapse other axes of the coefficient array
+                # one varying axis: `_ncc_axis_terms_from` expands a
+                # joint NCC modally before it gets here
                 ax_coeffs = np.moveaxis(ccomp, axis, -1)
-                if ax_coeffs.size != ax_coeffs.shape[-1]:
-                    raise NonlinearOperatorError(
-                        "LHS NCCs varying along several axes are not "
-                        "supported.")
                 cut = self._ncc_sparsify_cutoff(ax_coeffs)
                 if ob is None:
                     # operand constant along axis: column embedding the NCC
@@ -388,10 +547,6 @@ class ProductBase(Future):
                 # whole axis's convolution matrix
                 # (dedalus_tpu/core/arithmetic.py:532)
                 ax_coeffs = np.moveaxis(ccomp, axis, -1)
-                if ax_coeffs.size != ax_coeffs.shape[-1]:
-                    raise NonlinearOperatorError(
-                        "LHS NCCs varying along several axes are not "
-                        "supported.")
                 cut = self._ncc_sparsify_cutoff(ax_coeffs)
                 if ob is None:
                     descrs.append(("full", sparsify(ax_coeffs.reshape(-1, 1),
@@ -465,9 +620,7 @@ class ProductBase(Future):
         # scale 2 and back would round-trip its data through coefficient
         # space once per group, drifting it by ~1e-13 relative a call
         # (the JAX package's _disk_ncc_matrix does, :606-609)
-        work = ncc.dist.Field(bases=ncc.domain.bases,
-                              tensorsig=ncc.tensorsig, dtype=ncc.dtype)
-        work["c"] = np.array(ncc["c"])
+        work = _scratch_copy(ncc)
         work.change_scales(2)
         grid = np.asarray(work["g"])
         tdim_n = len(ncc.tensorsig)
@@ -475,6 +628,16 @@ class ProductBase(Future):
         flat = grid.reshape((ncomp_n,) + grid.shape[tdim_n:])
         tol = 1e-10 * max(np.abs(flat).max(), 1e-300)
         moved = np.moveaxis(flat, 1 + az_axis, 1)
+        if ProductBase.polar_azimuth_varies(work, nb):
+            # azimuthally varying by the classifier that forced the
+            # layout's m-coupling (subsystems._ncc_forced_coupled_axes),
+            # read off the scratch copy: cross-m assembly onto the
+            # coupled pencil
+            if subproblem.group[az_axis] is not None:
+                raise NonlinearOperatorError(
+                    "Azimuthally-varying disk NCC reached a per-m pencil; "
+                    "the layout classifier should have coupled azimuth.")
+            return self._disk_coupled_ncc_matrix(ncc, operand, moved)
         if np.abs(moved - moved[:, :1]).max() > tol:
             raise NonlinearOperatorError(
                 "LHS NCCs on disk bases must be angularly constant "
@@ -514,6 +677,118 @@ class ProductBase(Future):
                     terms.append((E, descrs))
         return assemble_group_matrix(terms, operand.domain, operand.tshape,
                                      self.tshape, subproblem)
+
+    def _disk_coupled_ncc_matrix(self, ncc, operand, moved):
+        """
+        The m-coupled pencil matrix of an azimuthally varying DISK NCC
+        (scalar data; dedalus_tpu/core/arithmetic.py:667). `moved` holds
+        the NCC's 2x-quadrature grid data, azimuth leading. The NCC
+        expands into azimuth modes j with radial profiles f_j(r); each
+        mode contributes, per operand spin component s,
+
+            A_j[slots(m_out), slots(m_in)] (x) F_s[m_out] diag(f_j) B_s[m_in]
+
+        with A_j the whole-axis azimuth convolution of basis mode j and
+        F/B the per-m Zernike quadrature stacks (the radial spaces are
+        m-dependent, so every coupled (m_out, m_in) pair gets its own
+        radial block). Real-dtype TENSOR operands take the stored-pair
+        conjugation of `_polar_coupled_azimuth_terms`: each 2x2 azimuth
+        pair block az2 carries C1 az2 + C2 az2 J + C3 J az2 + C4 J az2 J,
+        Ck the Re/Im products of the spin recombinations.
+        """
+        from .curvilinear import recombination_matrix
+        nb = self._polar_spin_basis(ncc)
+        ob = self._polar_spin_basis(operand)
+        if ncc.tensorsig:
+            raise NonlinearOperatorError(
+                "Azimuthally-varying disk NCCs must be scalar fields; "
+                "move tensor-valued azimuthal backgrounds to the RHS.")
+        real = not is_complex_dtype(self.dtype)
+        out_basis = self.domain.bases[nb.first_axis]
+        prof = moved[0].reshape(moved.shape[1], -1)       # (Ng_az, Ngr)
+        # azimuth-mode expansion through the NCC basis's own forward MMT
+        Af = np.asarray(nb.azimuth_basis._mult_forward_matrix(prof.shape[0]))
+        modes = Af @ prof                                  # (Naz_ncc, Ngr)
+        tol = (self._ncc_data_cutoff(modes)
+               * max(np.abs(modes).max(), 1e-300))
+        gs = ob.sub_group_shape(0)
+        G = ob.sub_n_groups(0)
+        Nr = ob.Nr
+        cs = ob.cs
+        s_in = component_spins(tuple(operand.tensorsig), cs) \
+            if operand.tensorsig else np.zeros(1, dtype=int)
+        ncomp = len(s_in)
+        naz = G * gs
+        # azimuth convolutions are spin-independent: one per mode
+        conv = []                                    # [(j, A_j)]
+        for j in range(modes.shape[0]):
+            if np.abs(modes[j]).max() <= tol:
+                continue
+            e_j = np.zeros(nb.shape[0])
+            e_j[j] = 1.0
+            A_j = ob.azimuth_basis.multiplication_matrix(
+                e_j, nb.azimuth_basis)
+            conv.append((j, np.asarray(
+                A_j.todense() if sp.issparse(A_j) else A_j)))
+
+        def pair_blocks(A_j, K_of, Fs, Bs, out):
+            """out += sum over (m_out, m_in) of kron(K, F[m_out] diag(f_j)
+            B[m_in]), K = K_of(the 2x2 or 1x1 azimuth block)."""
+            for go in range(G):
+                Rrow = None
+                for gi in range(G):
+                    K = K_of(A_j[go * gs:(go + 1) * gs,
+                                 gi * gs:(gi + 1) * gs])
+                    if np.abs(K).max() < 1e-14:
+                        continue
+                    if Rrow is None:
+                        Rrow = Fs[go] * prof_j[None, :]
+                    out[go * gs * Nr:(go + 1) * gs * Nr,
+                        gi * gs * Nr:(gi + 1) * gs * Nr] += np.kron(
+                            K, Rrow @ Bs[gi])
+
+        if real:
+            Uo = recombination_matrix(tuple(self.tensorsig), cs)
+            Ui = recombination_matrix(tuple(operand.tensorsig), cs)
+            s_out = component_spins(tuple(self.tensorsig), cs) \
+                if self.tensorsig else np.zeros(1, dtype=int)
+            Cs = [Uo.real @ Ui.real.T, -(Uo.real @ Ui.imag.T),
+                  Uo.imag @ Ui.real.T, -(Uo.imag @ Ui.imag.T)]
+            J = PAIR_J
+            F = {int(s): np.asarray(out_basis.radial_forward_stack(int(s),
+                                                                   2.0))
+                 for s in set(int(v) for v in s_out)}
+            B = {int(s): np.asarray(ob.radial_backward_stack(int(s), 2.0))
+                 for s in set(int(v) for v in s_in)}
+            M = np.zeros((len(s_out) * naz * Nr, ncomp * naz * Nr))
+            for j, A_j in conv:
+                prof_j = modes[j]
+                for ci in range(len(s_out)):
+                    for cj in range(ncomp):
+                        c = [Ck[ci, cj] for Ck in Cs]
+                        if max(abs(v) for v in c) < 1e-14:
+                            continue
+                        pair_blocks(
+                            A_j,
+                            lambda az2: (c[0] * az2 + c[1] * (az2 @ J)
+                                         + c[2] * (J @ az2)
+                                         + c[3] * (J @ az2 @ J)),
+                            F[int(s_out[ci])], B[int(s_in[cj])],
+                            M[ci * naz * Nr:(ci + 1) * naz * Nr,
+                              cj * naz * Nr:(cj + 1) * naz * Nr])
+            return sp.csr_matrix(sparsify(M, 1e-14))
+        spin_mats = {}
+        for s in sorted(set(int(v) for v in s_in)):
+            F = np.asarray(out_basis.radial_forward_stack(s, 2.0))
+            B = np.asarray(ob.radial_backward_stack(s, 2.0))
+            M = np.zeros((naz * Nr, naz * Nr), dtype=complex)
+            for j, A_j in conv:
+                prof_j = modes[j]
+                pair_blocks(A_j, lambda az2: az2, F, B, M)
+            spin_mats[s] = sparsify(M, 1e-14)
+        # a scalar NCC is component-diagonal: block diagonal over them
+        return sp.csr_matrix(sp.block_diag(
+            [spin_mats[int(s_in[c])] for c in range(ncomp)], format="csr"))
 
     def _polar_tensor_ncc_matrix(self, subproblem, ncc, operand, ncc_index):
         """
@@ -1283,6 +1558,13 @@ class ProductBase(Future):
         for comp in comp_indices:
             for scalar, descrs in self._ncc_axis_terms(ncc, comp, operand):
                 factors = [tensor_factor_fn(comp)]
+                if scalar is not None and not np.isscalar(scalar):
+                    # a component-mixing tensor factor (the real-pair
+                    # expansion of an azimuthally varying polar NCC)
+                    # composes with the component placement on the left
+                    factors[0] = sp.csr_matrix(np.asarray(scalar)) \
+                        @ sp.csr_matrix(factors[0])
+                    scalar = None
                 for axis, descr in enumerate(descrs):
                     ob = operand_domain.bases[axis]
                     if descr is None:

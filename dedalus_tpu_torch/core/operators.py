@@ -725,8 +725,8 @@ def Integrate(operand, coords=None):
 
 class AzimuthalAverage(LinearOperator):
     """
-    Average over the azimuth of a disk or annulus (or of their circle
-    edge): the m = 0 projection, identity on the m = 0 group and zero
+    Average over the azimuth of a curvilinear basis (disk, annulus,
+    sphere, shell, ball, or a circle edge): the m = 0 projection, identity on the m = 0 group and zero
     elsewhere (dedalus_tpu/core/operators.py:724; reference:
     core/basis.py:5202 AzimuthalAverage). The output is phi-constant on
     the same domain; its per-m blocks are constant, so it may stand on an
@@ -766,8 +766,9 @@ class AzimuthalAverage(LinearOperator):
 
 @parseable("azavg", "AzimuthalAverage")
 def AzimuthalAverageFactory(operand, coord=None):
-    """AzimuthalAverage over the disk, annulus or circle basis of
-    `operand` (the sphere's and the shell's wait for their slices)."""
+    """AzimuthalAverage over the azimuthal basis of `operand`: a circle,
+    disk, annulus, sphere, shell or ball (the m = 0 blocks of its
+    group_m(), dedalus_tpu/core/operators.py:769)."""
     if np.isscalar(operand):
         return operand
     if coord is not None:
@@ -786,10 +787,6 @@ def AzimuthalAverageFactory(operand, coord=None):
                       if b is not None and is_azimuthal(b)), None)
     if basis is None:
         raise ValueError("Operand has no azimuthal basis.")
-    if basis.dim > 1 and not _polar_basis(basis):
-        raise NotImplementedError(
-            f"AzimuthalAverage over {basis!r} is not carried by the port "
-            "yet (disk, annulus and circle bases are).")
     return AzimuthalAverage(operand, basis)
 
 

@@ -251,18 +251,22 @@ class DiskBasis(_PolarBasis):
 
     def component_valid_mask(self, tensorsig, group, sep_widths):
         """(ncomp, gs_az, Nr) at one m group: slot n valid iff n >=
-        nmin(m) (reference: core/basis.py:1780)."""
+        nmin(m) (reference: core/basis.py:1780). With the azimuth coupled
+        (an azimuthally varying NCC, or matrix_coupling), every m group's
+        slots live in one flattened (m x r) pencil, group-major:
+        (ncomp, G * gs_az, Nr) (dedalus_tpu/core/polar.py:222-254)."""
         tshape = tuple(cs.dim for cs in tensorsig)
         ncomp = int(np.prod(tshape, dtype=int)) if tshape else 1
         az_axis = self.first_axis
-        if az_axis not in sep_widths:
-            raise NotImplementedError(
-                "An m-coupled disk pencil (an azimuthally varying LHS NCC) "
-                "is not carried by the port yet.")
-        gs = self.sub_group_shape(0)
-        g = group[az_axis]
+        groups = ([group[az_axis]] if az_axis in sep_widths
+                  else range(self.sub_n_groups(0)))
+        return np.concatenate([self._group_valid_mask(tensorsig, ncomp, g)
+                               for g in groups], axis=1)
+
+    def _group_valid_mask(self, tensorsig, ncomp, g):
+        """(ncomp, gs_az, Nr): the valid slots of m group g."""
         m = self.group_m()[g]
-        mask = np.ones((ncomp, gs, self.Nr), dtype=bool)
+        mask = np.ones((ncomp, self.sub_group_shape(0), self.Nr), dtype=bool)
         mask &= (np.arange(self.Nr) >= self._nmin(m))[None, None, :]
         if self.complex and g == self.Nphi // 2:
             mask[:] = False  # Nyquist
@@ -470,21 +474,24 @@ class AnnulusBasis(WeightedJacobiRadial, _PolarBasis):
 
     def component_valid_mask(self, tensorsig, group, sep_widths):
         """(ncomp, gs_az, Nr) at one m group: every radial slot is valid
-        (reference: core/basis.py:2089 _nmin = 0)."""
+        (reference: core/basis.py:2089 _nmin = 0). With the azimuth
+        coupled, (ncomp, G * gs_az, Nr) over the flattened (m x r) pencil
+        (dedalus_tpu/core/polar.py:532-552)."""
         tshape = tuple(cs.dim for cs in tensorsig)
         ncomp = int(np.prod(tshape, dtype=int)) if tshape else 1
         az_axis = self.first_axis
-        if az_axis not in sep_widths:
-            raise NotImplementedError(
-                "An m-coupled annulus pencil (an azimuthally varying LHS "
-                "NCC) is not carried by the port yet.")
-        gs = self.sub_group_shape(0)
-        g = group[az_axis]
-        mask = np.ones((ncomp, gs, self.Nr), dtype=bool)
+        groups = ([group[az_axis]] if az_axis in sep_widths
+                  else range(self.sub_n_groups(0)))
+        return np.concatenate([self._group_valid_mask(tensorsig, ncomp, g)
+                               for g in groups], axis=1)
+
+    def _group_valid_mask(self, tensorsig, ncomp, g):
+        """(ncomp, gs_az, Nr): the valid slots of m group g."""
+        mask = np.ones((ncomp, self.sub_group_shape(0), self.Nr), dtype=bool)
         if self.complex and g == self.Nphi // 2:
             mask[:] = False  # Nyquist
         if (not self.complex) and self.group_m()[g] == 0:
-            # as on the disk (DiskBasis.component_valid_mask)
+            # as on the disk (DiskBasis._group_valid_mask)
             mask[~rotating_components(tuple(tensorsig), self.cs), 1, :] = \
                 False
         return mask

@@ -61,7 +61,7 @@ class SolverBase:
     # a banded structure's pin repair inputs, until its first factorization
     _pin_repair = None
 
-    def __init__(self, problem, matsolver=None):
+    def __init__(self, problem, matsolver=None, matrix_coupling=None):
         self.problem = problem
         self.dist = problem.dist
         self.variables = self.matrix_variables(problem)
@@ -69,8 +69,11 @@ class SolverBase:
             matsolver = config["linear algebra"].get("MATRIX_SOLVER", "auto")
         self.matsolver = matsolver
         self._path, self._dense_solver = resolve_matsolver(matsolver)
+        # matrix_coupling (per-axis bools) forces axes coupled beyond
+        # what the NCCs require (dedalus_tpu/core/solvers.py:51, :66)
         self.layout = PencilLayout(self.dist, self.variables,
-                                   problem.equations)
+                                   problem.equations,
+                                   matrix_coupling=matrix_coupling)
         self.equations = merge_conditional_equations(problem.equations,
                                                      self.dist, self.layout)
         self.subproblems = build_subproblems(self.layout)
@@ -340,7 +343,7 @@ class SolverBase:
                 return None, exc.with_traceback(None)
 
         aux, error = attempt()
-        if error is not None and self.floored_pivots is None:
+        if error is not None and self._base_floored is None:
             raise error
         union, qual, rows_all, cols_all, coo_store, band_stores = pending
         structure = self.structure
@@ -352,7 +355,7 @@ class SolverBase:
                                           shape=(S, S))
                        for name, c in coeffs.items())
 
-        bad = np.flatnonzero(to_numpy(self.floored_pivots))
+        bad = np.flatnonzero(to_numpy(self._base_floored))
         while len(bad):
             t0 = time_mod.perf_counter()
             if not structure.repair_pins(union, qual, rows_all, cols_all,
@@ -368,7 +371,7 @@ class SolverBase:
             aux, error = attempt()
             self.build_seconds["pin_repair"] = self.build_seconds.get(
                 "pin_repair", 0.0) + time_mod.perf_counter() - t0
-            now = np.flatnonzero(to_numpy(self.floored_pivots))
+            now = np.flatnonzero(to_numpy(self._base_floored))
             logger.info(f"Pinned base singular in {len(bad)} group(s): "
                         f"pin swap {structure.pin_swaps} leaves {len(now)}")
             if len(now) >= len(bad):
@@ -386,6 +389,16 @@ class SolverBase:
         singular pencil; reading it waits on the device, so it is read
         where the host reads anyway (at build, tools/health)."""
         return getattr(getattr(self, "ops", None), "floored_pivots", None)
+
+    @property
+    def _base_floored(self):
+        """The floored-pivot count of the pinned base alone (a banded
+        factor's; the dense factors have no other): the pin repair reads
+        it, since a singular capacitance over a nonsingular base is a
+        singular L, which no pin swap repairs."""
+        ops = getattr(self, "ops", None)
+        return getattr(ops, "base_floored_pivots",
+                       getattr(ops, "floored_pivots", None))
 
     @property
     def subproblems_by_group(self):
@@ -570,9 +583,11 @@ class InitialValueSolver(SolverBase):
     timestepper = None
 
     def __init__(self, problem, timestepper, matsolver=None,
-                 enforce_real_cadence=100, warmup_iterations=10):
+                 enforce_real_cadence=100, warmup_iterations=10,
+                 matrix_coupling=None):
         init_t0 = time_mod.time()
-        super().__init__(problem, matsolver=matsolver)
+        super().__init__(problem, matsolver=matsolver,
+                         matrix_coupling=matrix_coupling)
         self._upload_matrices()
         self.eval_F = self.build_rhs_evaluator("F", time_field=problem.time)
         # timestepping state and the run loop's stop conditions
@@ -826,8 +841,9 @@ class LinearBoundaryValueSolver(SolverBase):
 
     matrices = ("L",)
 
-    def __init__(self, problem, matsolver=None):
-        super().__init__(problem, matsolver=matsolver)
+    def __init__(self, problem, matsolver=None, matrix_coupling=None):
+        super().__init__(problem, matsolver=matsolver,
+                         matrix_coupling=matrix_coupling)
         self._factor_L()
         self.eval_F = self.build_rhs_evaluator("F")
         self.iteration = 0
@@ -868,8 +884,9 @@ class NonlinearBoundaryValueSolver(SolverBase):
 
     matrices = ("L",)
 
-    def __init__(self, problem, matsolver=None):
-        super().__init__(problem, matsolver=matsolver)
+    def __init__(self, problem, matsolver=None, matrix_coupling=None):
+        super().__init__(problem, matsolver=matsolver,
+                         matrix_coupling=matrix_coupling)
         self.iteration = 0
         self._last_perturbation = None
         # residual expressions converted to their equation blocks' domains
@@ -937,8 +954,9 @@ class EigenvalueSolver(SolverBase):
     matrices = ("M", "L")
     lazy_ok = True
 
-    def __init__(self, problem, matsolver=None):
-        super().__init__(problem, matsolver=matsolver)
+    def __init__(self, problem, matsolver=None, matrix_coupling=None):
+        super().__init__(problem, matsolver=matsolver,
+                         matrix_coupling=matrix_coupling)
         self.eigenvalues = None
         self.eigenvectors = None
         self.eigenvalue_subproblem = None

@@ -47,23 +47,6 @@ def _ncc_forced_coupled_axes(variables, equations):
 
     forced = set()
 
-    def check_polar_azimuth(ncc_expr, basis):
-        """A disk/annulus NCC that varies with azimuth would couple the m
-        groups (dedalus_tpu/core/subsystems.py:77 couples_azimuth_polar,
-        by the classifier the term assembly shares): the port does not
-        carry m-coupled polar pencils, so it refuses the problem here
-        rather than assemble an m-uncoupled answer."""
-        ncc = ncc_expr if isinstance(ncc_expr, Field) \
-            else ncc_expr.evaluate()
-        if ProductBase.polar_azimuth_varies(ncc, basis):
-            raise NotImplementedError(
-                f"An LHS NCC that varies with the azimuth of {basis!r} "
-                "couples the azimuthal (m) groups; the port does not carry "
-                "m-coupled polar pencils yet (the JAX package assembles "
-                "them in _polar_coupled_azimuth_terms and "
-                "_disk_coupled_ncc_matrix). Move the term to the RHS or "
-                "make the NCC angularly constant.")
-
     def couples_colatitude(ncc_expr, basis):
         """Does a shell NCC vary with colatitude, or carry non-radial
         components? Classified from its data by the same function the
@@ -90,6 +73,23 @@ def _ncc_forced_coupled_axes(variables, equations):
         rad = spin_prof[radial_flat]
         return bool(np.abs(rad - rad[:1, :]).max() > tol)
 
+    def couples_azimuth_polar(ncc_expr, basis):
+        """Does a disk/annulus NCC vary with azimuth? Classified by the
+        grid-space, dtype-aware function the term assembly shares
+        (ProductBase.polar_azimuth_varies), so layout and assembly cannot
+        disagree (dedalus_tpu/core/subsystems.py:77; reference:
+        azimuthally varying NCCs make polar subproblems m-coupled,
+        core/arithmetic.py:359-406)."""
+        from ..tools.exceptions import NonlinearOperatorError
+        try:
+            ncc = ncc_expr if isinstance(ncc_expr, Field) \
+                else ncc_expr.evaluate()
+            return ProductBase.polar_azimuth_varies(ncc, basis)
+        except NonlinearOperatorError:
+            raise
+        except Exception:
+            return True  # cannot classify: couple, as the JAX package does
+
     def walk(expr):
         if not isinstance(expr, Future):
             return
@@ -104,16 +104,20 @@ def _ncc_forced_coupled_axes(variables, equations):
                         # multi-axis (curvilinear) NCC: angularly constant
                         # radial profiles keep the per-m (polar) and
                         # per-(m, ell) (shell) pencils; a colatitude-
-                        # varying shell NCC couples ell
+                        # varying shell NCC couples ell, an azimuthally
+                        # varying polar NCC couples m
                         colat = basis.first_axis + 1
                         if (basis.dim == 3 and axis == colat
                                 and basis.sub_separable(1)
                                 and couples_colatitude(ncc_sides[0], basis)):
                             forced.add(colat)
                         from .polar import DiskBasis, AnnulusBasis
+                        az = basis.first_axis
                         if (isinstance(basis, (DiskBasis, AnnulusBasis))
-                                and axis == basis.first_axis):
-                            check_polar_azimuth(ncc_sides[0], basis)
+                                and axis == az and basis.sub_separable(0)
+                                and couples_azimuth_polar(ncc_sides[0],
+                                                          basis)):
+                            forced.add(az)
                         continue
                     sub = axis - basis.first_axis
                     if basis.sub_separable(sub):
@@ -133,12 +137,19 @@ def _ncc_forced_coupled_axes(variables, equations):
 class PencilLayout:
     """Global pencil structure shared by all subproblems of a problem."""
 
-    def __init__(self, dist, variables, equations):
+    def __init__(self, dist, variables, equations, matrix_coupling=None):
         self.dist = dist
         dim = dist.dim
         sep_basis = [None] * dim      # (basis, sub_axis)
         coupled_basis = [None] * dim  # (basis, sub_axis)
         self.forced_coupled = _ncc_forced_coupled_axes(variables, equations)
+        if matrix_coupling is not None:
+            # the solvers' matrix_coupling (per-axis bools) forces axes
+            # coupled beyond what the NCCs require
+            # (dedalus_tpu/core/subsystems.py:140-152)
+            for axis, forced in enumerate(matrix_coupling):
+                if forced:
+                    self.forced_coupled.add(axis)
         domains = [v.domain for v in variables] + [eq["domain"] for eq in equations]
         for domain in domains:
             for axis, basis in enumerate(domain.bases):
@@ -712,6 +723,27 @@ class MatrixStructure:
         if outer_match:
             inner = max(self._inner_modes, 1)
             cand_outer = self._col_pos_mode // inner
+        # Where rows match within their own outer block, a tau column
+        # that only one row can take (a tau lifted into a single row of
+        # the block) is that row's first choice. The highest-offset rule
+        # alone can leave it unmatched: on an m-coupled annulus (a radial
+        # basis without the Chebyshev parity that keeps u(Nr-1) out of
+        # row Nr-2) row Nr-2 of each m block takes u(Nr-1), which sits
+        # after its tau2 column; every row then aligns one offset low,
+        # tau2 is pinned, and the pinned base is a first-order recurrence
+        # that grows with Nr (the Woodbury Y reached 4.5e7, 3e17 and
+        # 1e45 at Nr = 16, 32, 64, the solve 1e31 off at 64x64). Taken
+        # first, the taus close each block and the rows align on the
+        # principal part (offset +2). Where the plain rule already takes
+        # such a column (the ell-coupled shells and balls) nothing
+        # changes. Two genuine coupled bases keep the plain rule, as the
+        # JAX package does everywhere (dedalus_tpu/core/subsystems.py:829):
+        # taking every tau column first, or every single-row one on every
+        # layout, moves the rectangle's and other layouts' pins.
+        single_tau = np.zeros(S, dtype=bool)
+        if outer_match:
+            single_tau[pos_col[self._cols_unc]] = True
+            single_tau &= np.bincount(indices, minlength=S) == 1
         for i in range(nr - 1, -1, -1):
             cand = indices[indptr[i]:indptr[i + 1]]
             w = data[indptr[i]:indptr[i + 1]]
@@ -725,7 +757,8 @@ class MatrixStructure:
                     near = cand_outer[cand] == row_outer
                     if near.any():
                         cand = cand[near]
-                c = cand.max()
+                tau = cand[single_tau[cand]]
+                c = tau.max() if len(tau) else cand.max()
                 match[i] = c
                 col_taken[c] = True
         row_pos = -np.ones(S, dtype=int)     # orig row index -> position

@@ -29,7 +29,10 @@ diffusion in a periodic cylinder (examples/cylinder_diffusion.py), a
 Poisson LBVP in a cylindrical annulus and the pipe flow's
 linear-stability EVP (examples/pipe_flow.py); and the two ensemble fleets
 of the JAX package's benchmarks/ensemble.py (the forced heat equation and
-RB 256x64, each with its member initial conditions).
+RB 256x64, each with its member initial conditions); and the coupled
+pencils: an azimuthally varying annulus NCC (LBVP and IVP) and disk NCC,
+the disk Poisson under matrix_coupling, the Chebyshev x Chebyshev
+Poisson rectangle (two coupled axes) and a joint f(x, z) NCC.
 Each builds on `device` (default `cuda`; pass "cpu" to run on the host).
 """
 
@@ -1169,3 +1172,171 @@ def build_pipe_flow_evp(Nr=64, device=None):
     problem.add_equation("w(r=1) = 0")
     solver = problem.build_solver()
     return solver, solver.subproblems_by_group[(m, None)]
+
+
+# the coupled-pencil problems: the annulus radii and the NCC of the JAX
+# package's tests/test_polar_azimuthal_ncc.py:104
+AZNCC_RADII = (0.7, 1.8)
+AZNCC_DT = 1e-3
+
+
+def build_annulus_azncc(Nphi, Nr, kind="lbvp", matsolver=None, device=None):
+    """
+    An azimuthally varying annulus NCC, w = 1 + 0.3 r cos(phi), which
+    couples every m group into one (m x r) pencil: the LBVP of the JAX
+    package's tests/test_polar_azimuthal_ncc.py:104 (kind "lbvp": w*u -
+    lap(u) = g with u = 0 on both walls, g made from the manufactured u =
+    (r - 0.7)(1.8 - r)(1 + 0.5 cos(phi))), or its IVP (kind "ivp": dt(u)
+    + w*u - lap(u) = 0 with the same walls, RK222, u starting from the
+    manufactured profile; step it at AZNCC_DT). AnnulusBasis (Nphi, Nr),
+    radii AZNCC_RADII, f64, dealias 2 (the product's exact projection).
+    Returns (solver, u, u_true) with u_true the manufactured grid values.
+    """
+    import dedalus_tpu_torch.public as d3
+    Ri, Ro = AZNCC_RADII
+    coords = d3.PolarCoordinates("phi", "r")
+    dist = d3.Distributor(coords, dtype=np.float64, device=device)
+    ann = d3.AnnulusBasis(coords, shape=(Nphi, Nr), dtype=np.float64,
+                          radii=AZNCC_RADII, dealias=2)
+    phi, r = dist.local_grids(ann)
+    u_true = (r - Ri) * (Ro - r) * (1 + 0.5 * np.cos(phi))
+    w = dist.Field(name="w", bases=ann)
+    w["g"] = 1.0 + 0.3 * np.cos(phi) * r
+    u = dist.Field(name="u", bases=ann)
+    tau1 = dist.Field(name="tau1", bases=ann.edge)
+    tau2 = dist.Field(name="tau2", bases=ann.edge)
+    lift_basis = ann.derivative_basis(2)
+    lift = lambda A, n: d3.Lift(A, lift_basis, n)  # noqa: E731
+    if kind == "lbvp":
+        ut = dist.Field(name="ut", bases=ann)
+        ut["g"] = u_true
+        g = (w * ut - d3.lap(ut)).evaluate()
+        problem = d3.LBVP([u, tau1, tau2], namespace=locals())
+        problem.add_equation("w*u - lap(u) + lift(tau1,-1) + lift(tau2,-2) "
+                             "= g")
+    elif kind == "ivp":
+        problem = d3.IVP([u, tau1, tau2], namespace=locals())
+        problem.add_equation("dt(u) + w*u - lap(u) + lift(tau1,-1) "
+                             "+ lift(tau2,-2) = 0")
+    else:
+        raise ValueError(f"kind {kind!r}: 'lbvp' or 'ivp'")
+    problem.add_equation(f"u(r={Ri}) = 0")
+    problem.add_equation(f"u(r={Ro}) = 0")
+    if kind == "ivp":
+        solver = problem.build_solver(d3.RK222, matsolver=matsolver)
+        u["g"] = u_true
+    else:
+        solver = problem.build_solver(matsolver=matsolver)
+    return solver, u, u_true
+
+
+def build_disk_azncc(Nphi, Nr, kind="ncc", device=None):
+    """
+    The disk's coupled pencils. Kind "ncc": w*u - lap(u) = g on a
+    DiskBasis (Nphi, Nr) of radius 1, dealias 2, with the azimuthally
+    varying w = 1 + 0.3 r cos(phi) (one (m x r) pencil) and u = 0 on the
+    edge, g made from the manufactured u = (1 - r^2)(1 + 0.5 x + 0.3 x y).
+    Kind "coupled_poisson": the disk Poisson lap(u) = g of the JAX
+    package's tests/test_two_coupled.py:207, with u = (1 - r^2)(1 + 0.5 x
+    + 0.3 y), solved with matrix_coupling=[True, True] (one flattened
+    pencil; its solution is the separable one's). Returns (solver, u,
+    u_true).
+    """
+    import dedalus_tpu_torch.public as d3
+    coords = d3.PolarCoordinates("phi", "r")
+    dist = d3.Distributor(coords, dtype=np.float64, device=device)
+    disk = d3.DiskBasis(coords, shape=(Nphi, Nr), dtype=np.float64,
+                        radius=1.0, dealias=2)
+    phi, r = dist.local_grids(disk)
+    x, y = r * np.cos(phi), r * np.sin(phi)
+    u = dist.Field(name="u", bases=disk)
+    tau = dist.Field(name="tau", bases=disk.edge)
+    lift = lambda A: d3.Lift(A, disk, -1)  # noqa: E731
+    g = dist.Field(name="g", bases=disk)
+    if kind == "ncc":
+        u_true = (1 - r ** 2) * (1 + 0.5 * x + 0.3 * x * y)
+        w = dist.Field(name="w", bases=disk)
+        w["g"] = 1.0 + 0.3 * r * np.cos(phi)
+        ut = dist.Field(name="ut", bases=disk)
+        ut["g"] = u_true
+        g = (w * ut - d3.lap(ut)).evaluate()
+        problem = d3.LBVP([u, tau], namespace=locals())
+        problem.add_equation("w*u - lap(u) + lift(tau) = g")
+        kw = {}
+    elif kind == "coupled_poisson":
+        u_true = (1 - r ** 2) * (1 + 0.5 * x + 0.3 * y)
+        # lap((1 - r^2) v) = -4 v + 2 grad(1 - r^2).grad(v), v harmonic
+        g["g"] = -4.0 - 4.0 * x - 2.4 * y
+        problem = d3.LBVP([u, tau], namespace=locals())
+        problem.add_equation("lap(u) + lift(tau) = g")
+        kw = {"matrix_coupling": [True, True]}
+    else:
+        raise ValueError(f"kind {kind!r}: 'ncc' or 'coupled_poisson'")
+    problem.add_equation("u(r=1) = 0")
+    solver = problem.build_solver(**kw)
+    return solver, u, u_true
+
+
+def build_poisson_rect(N, matsolver=None, device=None):
+    """
+    The Chebyshev x Chebyshev Poisson rectangle of the JAX package's
+    tests/test_two_coupled.py:21 at N x N on [0, 1]^2: lap(u) = f with
+    tau lines on both axes (two coupled axes; the four corner modes make
+    L singular), u = 0 on the four sides, against u = sin(pi x) sin(pi z)
+    exp(x). Returns (solver, u, u_exact).
+    """
+    import dedalus_tpu_torch.public as d3
+    coords = d3.CartesianCoordinates("x", "z")
+    dist = d3.Distributor(coords, dtype=np.float64, device=device)
+    xb = d3.ChebyshevT(coords["x"], size=N, bounds=(0, 1))
+    zb = d3.ChebyshevT(coords["z"], size=N, bounds=(0, 1))
+    x, z = dist.local_grids(xb, zb)
+    u = dist.Field(name="u", bases=(xb, zb))
+    tx1 = dist.Field(name="tx1", bases=zb)
+    tx2 = dist.Field(name="tx2", bases=zb)
+    tz1 = dist.Field(name="tz1", bases=xb)
+    tz2 = dist.Field(name="tz2", bases=xb)
+    u_exact = np.sin(np.pi * x) * np.sin(np.pi * z) * np.exp(x)
+    rhs = dist.Field(name="rhs", bases=(xb, zb))
+    rhs["g"] = (np.exp(x) * np.sin(np.pi * z)
+                * ((1 - np.pi ** 2) * np.sin(np.pi * x)
+                   + 2 * np.pi * np.cos(np.pi * x))
+                - np.pi ** 2 * np.sin(np.pi * x) * np.sin(np.pi * z)
+                * np.exp(x))
+    liftx = lambda A, n: d3.Lift(A, xb.derivative_basis(2), n)  # noqa: E731
+    liftz = lambda A, n: d3.Lift(A, zb.derivative_basis(2), n)  # noqa: E731
+    problem = d3.LBVP([u, tx1, tx2, tz1, tz2], namespace=locals())
+    problem.add_equation("lap(u) + liftx(tx1,-1) + liftx(tx2,-2)"
+                         " + liftz(tz1,-1) + liftz(tz2,-2) = rhs")
+    problem.add_equation("u(x=0) = 0")
+    problem.add_equation("u(x=1) = 0")
+    problem.add_equation("u(z=0) = 0")
+    problem.add_equation("u(z=1) = 0")
+    solver = problem.build_solver(matsolver=matsolver)
+    return solver, u, u_exact
+
+
+def build_joint_ncc(Nx, Nz, device=None):
+    """
+    The joint-NCC LBVP of the JAX package's tests/test_joint_ncc.py:70:
+    (2 + 0.5 sin(x) z) u = F on RealFourier(Nx) x ChebyshevT(Nz), dealias
+    2, for a known u; the NCC varies along both axes, so the Fourier axis
+    is forced coupled (one pencil). Returns (solver, u, u_target).
+    """
+    import dedalus_tpu_torch.public as d3
+    coords = d3.CartesianCoordinates("x", "z")
+    dist = d3.Distributor(coords, dtype=np.float64, device=device)
+    xb = d3.RealFourier(coords["x"], size=Nx, bounds=(0, 2 * np.pi),
+                        dealias=2)
+    zb = d3.ChebyshevT(coords["z"], size=Nz, bounds=(0, 1), dealias=2)
+    x, z = dist.local_grids(xb, zb)
+    f = dist.Field(name="f", bases=(xb, zb))
+    f["g"] = 2.0 + 0.5 * np.sin(x) * z
+    u = dist.Field(name="u", bases=(xb, zb))
+    u_target = dist.Field(name="u_target", bases=(xb, zb))
+    u_target["g"] = np.cos(x) * z + 0.3 * np.sin(2 * x) * (1 - z)
+    F = (f * u_target).evaluate()
+    problem = d3.LBVP([u], namespace=locals())
+    problem.add_equation("f*u = F")
+    solver = problem.build_solver()
+    return solver, u, np.array(u_target["g"])

@@ -200,6 +200,30 @@ class DenseOps(AdjointSolveOps):
         return np.asarray(host_mat[g])
 
 
+def _capacitance_deficit(Cap):
+    """Per-group count of the Woodbury capacitance's pivots that mark a
+    singular L (the rank deficiency that the dense factors' pivot floor
+    counts): pivots of the LU of Cap, its rows and then its columns
+    scaled to unit max |entry|, below sqrt(eps) of their max. The
+    capacitance is formed from Y = B~^-1 E, so its rounding carries
+    cond(B~): a null direction sits at ~1e-12..1e-10 of its scale, not
+    at eps (the Chebyshev^2 rectangle's four corner modes: 4th pivot
+    5.4e-11, 5th 1.1e-3 at 48x48), and an unscaled capacitance with a
+    few huge pin columns (up to 3e17 in an m-coupled annulus, whose
+    scaled pivots are all ~1) fools the dense floor S eps max|LU|. On
+    the device: nothing waits on it."""
+    with torch.no_grad():
+        one = torch.ones((), dtype=Cap.real.dtype, device=Cap.device)
+        row = amax_abs(Cap, -1)[..., :, None]
+        C = Cap / torch.where(row > 0, row, one)
+        col = amax_abs(C, -2)[..., None, :]
+        C = C / torch.where(col > 0, col, one)
+        LU = torch.linalg.lu_factor_ex(C)[0]
+        eps = torch.finfo(Cap.real.dtype).eps
+        floor = eps ** 0.5 * amax_abs(LU, (-2, -1))[..., None]
+        return count_floored_pivots(LU, floor)
+
+
 class BandedMatrix:
     """
     One pencil matrix in trimmed banded + pinned-row storage: only the
@@ -469,8 +493,12 @@ class BandedOps(AdjointSolveOps):
                 lastP, lu)
 
     # per-group count of the pivots below the floor in the most recent
-    # factorization (a device tensor; None before the first)
+    # factorization (a device tensor; None before the first): those of
+    # the pinned base B~ (`base_floored_pivots`, which the pin repair
+    # reads), plus those of the Woodbury capacitance in a boundary value
+    # problem's factor
     floored_pivots = None
+    base_floored_pivots = None
 
     def _count_floored(self, interior):
         """Per-group count of the banded factor's pivots (its panels' and
@@ -568,12 +596,19 @@ class BandedOps(AdjointSolveOps):
         names = ("perms", "panelLU", "U12", "lastP", "lastLU")
         return {n: a for n, a in zip(names, interior) if a is not None}
 
-    def _woodbury(self, aux, Vt):
+    def _woodbury(self, aux, Vt, inverse):
         """The Woodbury pieces over the whole store: aux["YbT"] = (B~^-1
         E)^T, solved as t right-hand sides per group in one substitution
         (by the aux's composition), and the t x t capacitance: its
-        inverse in fsub["CapInv"] (the fused factors) or its LU in
-        aux["CapLU"] (the pivoted ones)."""
+        inverse in fsub["CapInv"] with `inverse` (a fused step factor)
+        or its LU in aux["CapLU"] (a boundary value problem's factor and
+        the pivoted step factors), as the JAX package keeps them
+        (dedalus_tpu/libraries/pencilops.py:925 _factor_core). A singular
+        L with a nonsingular pinned base B~ (a rectangle's corner modes)
+        has a singular capacitance: its LU solve stays backward stable
+        and returns a member of the solution set, where the explicit
+        inverse spreads its 1/eps entries over every component. Returns
+        the capacitance."""
         G, dtype, device = Vt.shape[0], Vt.dtype, Vt.device
         # E = one-hot columns at the pin positions, kept transposed
         # (G, t, n_pad) like Y
@@ -584,13 +619,14 @@ class BandedOps(AdjointSolveOps):
         Cap = (torch.eye(self.t, dtype=dtype, device=device)
                + Vt @ YbT.transpose(1, 2)
                - YbT[:, :, self._pin_pos_t].transpose(1, 2))
-        if "fsub" in aux:
+        if inverse:
             # the t x t capacitance solve becomes one GEMM
             aux["fsub"]["CapInv"] = torch.linalg.inv(Cap)
         else:
             LU, piv, _ = torch.linalg.lu_factor_ex(Cap)
             aux["CapLU"] = (LU, piv)
         aux["YbT"] = YbT
+        return Cap
 
     def _combine_bands(self, mb, lb, a, b, dM, dL):
         """a*M + b*L as a full-lattice band slab from trimmed slabs."""
@@ -656,7 +692,8 @@ class BandedOps(AdjointSolveOps):
                     store[name] = arr.new_empty(shape)
                 store[name].narrow(axis, lo, hi - lo).copy_(arr)
             del part
-        self.floored_pivots = counts[0] if C == 1 else torch.cat(counts)
+        self.floored_pivots = self.base_floored_pivots = (
+            counts[0] if C == 1 else torch.cat(counts))
         composition = self._composition if step else "sequential"
         aux = {"fsub" if fused else "interior": store, "factor_chunks": C,
                "composition": composition}
@@ -669,7 +706,12 @@ class BandedOps(AdjointSolveOps):
                 if V is not None:
                     Vt += scale * V
             aux["Vt"] = Vt
-            self._woodbury(aux, Vt)
+            Cap = self._woodbury(aux, Vt, inverse=step and fused)
+            if not step:
+                # a boundary value problem's singular L (the build warns
+                # on it): the capacitance's floored pivots join the base's
+                self.floored_pivots = (self.floored_pivots
+                                       + _capacitance_deficit(Cap))
         if step and fused and self._ladder:
             # precision ladder: the substitution operators and the
             # Woodbury pieces, computed above at native precision, are
@@ -899,7 +941,7 @@ class BandedOps(AdjointSolveOps):
         if self.t:
             Vt, YbT = aux["Vt"].to(ydtype), aux["YbT"].to(ydtype)
             w = torch.einsum("gtn,gn->gt", YbT, yb)
-            if fsub is not None:
+            if fsub is not None and "CapInv" in fsub:
                 z = torch.einsum("gji,gj->gi", fsub["CapInv"].to(ydtype), w)
             else:
                 z = lu_solve_transpose(*aux["CapLU"], w)
@@ -927,7 +969,7 @@ class BandedOps(AdjointSolveOps):
             Vt, YbT = aux["Vt"].to(y.dtype), aux["YbT"].to(y.dtype)
             Vy = (torch.einsum("gtn,gn->gt", Vt, y)
                   - y[:, self._pin_pos_t])
-            if fsub is not None:
+            if fsub is not None and "CapInv" in fsub:
                 z = torch.einsum("gij,gj->gi", fsub["CapInv"].to(y.dtype),
                                  Vy)
             else:

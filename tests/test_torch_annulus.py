@@ -17,7 +17,8 @@ CPU, inputs from numpy seeds:
   * centrifugal convection at 32x16: the pencil valid masks and S bit for
     bit, M and L np.array_equal, 10 RK222 steps to 1e-12 (also from the
     system carried from the JAX solver), the CFL timestep equal;
-  * an azimuthally varying annulus NCC raises NotImplementedError.
+  * an azimuthally varying annulus NCC builds one m-coupled pencil
+    (it raised NotImplementedError until the m-coupled pencils came).
 """
 
 import numpy as np
@@ -292,19 +293,28 @@ def test_lbvps_match_jax(case):
 
 
 def test_azimuth_varying_ncc_raises():
-    """An LHS NCC varying with azimuth couples the m groups, which the
-    port does not carry: NotImplementedError, never an m-uncoupled
-    answer."""
+    """An LHS NCC varying with azimuth couples the m groups. The port
+    refused it until the m-coupled polar pencils came; it now builds one
+    flattened (m x r) pencil (the azimuth forced coupled), and the
+    solution of ncc*u = v reproduces v through the grid product to
+    1e-10 (tests/test_torch_polar_azncc.py holds these pencils against
+    the JAX package)."""
     cs, dist, ann = make_annulus(td3, shape=(16, 12))
     phi, r = dist.local_grids(ann)
     ncc = dist.Field(name="ncc", bases=ann)
     ncc["g"] = 1 + 0.3 * np.cos(phi) * r
     u = dist.Field(name="u", bases=ann)
     v = dist.Field(name="v", bases=ann)
+    v["g"] = (1 + 0.5 * r * np.sin(phi)) * r ** 2
     problem = td3.LBVP([u], namespace=locals())
     problem.add_equation("ncc*u = v")
-    with pytest.raises(NotImplementedError, match="azimuth"):
-        problem.build_solver()
+    solver = problem.build_solver()
+    assert ann.first_axis in solver.layout.forced_coupled
+    assert solver.pencil_shape[0] == 1
+    solver.solve()
+    out = (ncc * u).evaluate()
+    out.change_scales(1)
+    assert np.abs(np.asarray(out["g"]) - np.asarray(v["g"])).max() < 1e-10
 
 
 # -------------------------------------------- centrifugal convection 32x16

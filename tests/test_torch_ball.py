@@ -734,10 +734,10 @@ def test_ball_banded_repair_when_the_capacitance_inverse_raises(
     from dedalus_tpu_torch.libraries import pencilops
     woodbury = pencilops.BandedOps._woodbury
 
-    def raising(self, aux, Vt):
+    def raising(self, aux, Vt, **kw):
         if int(self.floored_pivots.sum()):
             raise torch.linalg.LinAlgError("singular capacitance")
-        return woodbury(self, aux, Vt)
+        return woodbury(self, aux, Vt, **kw)
 
     monkeypatch.setattr(pencilops.BandedOps, "_woodbury", raising)
     tb, dt, _ = tbench.build_ball_convection(16, 8, 12, matsolver="banded",

@@ -22,7 +22,8 @@ from numpy seeds:
     carried from the JAX solver; problem.time is not the user's t in
     both packages; a time-dependent RHS on the problem's own time field
     agrees to 1e-12;
-  * an azimuthally varying disk NCC raises NotImplementedError.
+  * an azimuthally varying disk NCC builds one m-coupled pencil (it
+    raised NotImplementedError until the m-coupled pencils came).
 """
 
 import numpy as np
@@ -358,19 +359,28 @@ def test_lbvps_match_jax(case):
 
 
 def test_azimuth_varying_ncc_raises():
-    """An LHS NCC varying with azimuth couples the m groups, which the
-    port does not carry: NotImplementedError, never an m-uncoupled
-    answer."""
+    """An LHS NCC varying with azimuth couples the m groups. The port
+    refused it until the m-coupled polar pencils came; it now builds one
+    flattened (m x r) pencil (the azimuth forced coupled), and the
+    solution of ncc*u = v reproduces v through the grid product to
+    1e-10 (tests/test_torch_polar_azncc.py holds these pencils against
+    the JAX package)."""
     cs, dist, disk = make_disk(td3)
     phi, r = dist.local_grids(disk)
     ncc = dist.Field(name="ncc", bases=disk)
-    ncc["g"] = 1 + 0.3 * r * np.cos(phi)
+    ncc["g"] = 1 + 0.3 * np.cos(phi) * r
     u = dist.Field(name="u", bases=disk)
     v = dist.Field(name="v", bases=disk)
+    v["g"] = (1 + 0.5 * r * np.sin(phi)) * r ** 2
     problem = td3.LBVP([u], namespace=locals())
     problem.add_equation("ncc*u = v")
-    with pytest.raises(NotImplementedError, match="azimuth"):
-        problem.build_solver()
+    solver = problem.build_solver()
+    assert disk.first_axis in solver.layout.forced_coupled
+    assert solver.pencil_shape[0] == 1
+    solver.solve()
+    out = (ncc * u).evaluate()
+    out.change_scales(1)
+    assert np.abs(np.asarray(out["g"]) - np.asarray(v["g"])).max() < 1e-10
 
 
 # ---------------------------------------------------- libration 16x32

@@ -363,6 +363,36 @@ Phases (each prints its own lines; any failure exits non-zero):
      error. joint_ncc64x32
      (build_joint_ncc, dense): card vs CPU to 1e-12, within 1e-10 of its
      target.
+     Phases 1-24 run with the run-side layers off ([profiling]
+     METRICS_DEFAULT and [health] HEALTH_DEFAULT set False here: a solver
+     with both off runs what it ran before them).
+ 25. The run-side tools (runside_phase) at RB 2048x1024 (RK222, f64,
+     banded, build_rb_solver through the public API) with both layers
+     on: the health probe at cadence RUNSIDE_HEALTH_CADENCE, the phase
+     sampler at RUNSIDE_SAMPLE_CADENCE with a JSONL sink in a temporary
+     directory, every run a solver.evolve_resilient loop (snapshots every
+     RUNSIDE_SNAPSHOT_CADENCE, the SDC sentinel every RUNSIDE_SDC_CADENCE)
+     with the kernel's counts set to 0 around it and asserted equal to
+     the solve plan's count for what it executed (every step taken,
+     rewound ones and SDC re-executions included, x stages x (1 +
+     sweeps), one Woodbury launch a factorization, one solve a phase
+     sample): a clean run to RUNSIDE_CKPT_AT with an async sharded
+     checkpoint there and on to RUNSIDE_CLEAN; a second solver, built
+     fresh, resumes from that checkpoint and steps to RUNSIDE_CLEAN,
+     bit-equal to the uninterrupted run; then, on the resumed solver, a
+     NaN (one rewind at the DT_BACKOFF dt, the refactors of the backoff
+     and of the cap's relaxation, a finite state), a flipped mantissa bit
+     on a checked step (one detection, a rewind without backoff, bit-equal
+     to a clean re-run of the same steps from the same snapshot), a
+     SIGTERM after a periodic async checkpoint (a graceful stop and a
+     final checkpoint), and the newest checkpoint corrupted (quarantined;
+     the resume falls back to the periodic one, bit-equal); a FileHandler
+     set written and read back where h5py imports, else the ImportError
+     naming h5py; host reads of single steps (0 off the cadences, 1 on a
+     probe step, 1 + 3 on a sample step); steps/s of a step loop with the
+     layers on and off; the async checkpoint's stall per write and its
+     bytes, the resume's, rewinds' and SDC checks' seconds (each refactor
+     included), the own peak, and the format_phase_table lines.
      Then the kernels line (banded_subst, banded_subst_bf16,
      banded_subst_T, banded_subst_T_bf16, each launched on some path of
      this run), the card line, and the result line.
@@ -556,6 +586,26 @@ RECT_MAX_DIAGS = "768"
 RECT_BOUND = 1e-8
 # the joint f(x, z) NCC LBVP of the JAX package's tests/test_joint_ncc.py:70
 JOINT_SIZE = (64, 32)
+# phase 25, the run-side tools at RB 2048x1024 (RK222, f64, banded): the
+# health probe's and the phase sampler's cadences, the snapshot and SDC
+# cadences of the resilient loops, the clean run's checkpoint iteration
+# and its end, the NaN's and the bit flip's schedules (the NaN lands
+# after a step the sentinel does not check), and the steps of the layers
+# on/off timing
+RUNSIDE_SIZE = (2048, 1024)
+RUNSIDE_DT = 1e-3
+RUNSIDE_HEALTH_CADENCE = 5
+RUNSIDE_SAMPLE_CADENCE = 10
+RUNSIDE_SNAPSHOT_CADENCE = 10
+RUNSIDE_SDC_CADENCE = 20
+RUNSIDE_CKPT_AT = 20
+RUNSIDE_CLEAN = 40
+RUNSIDE_NAN_AFTER = 5       # steps into the chaos run
+RUNSIDE_CHAOS_STEPS = 30
+RUNSIDE_FLIP_STEPS = 10
+RUNSIDE_STOP_CKPT_ITER = 5
+RUNSIDE_SIGTERM_AFTER = 8
+RUNSIDE_TIMED_STEPS = 20
 AZNCC_LBVP = "annulus_azncc%dx%d lbvp" % AZNCC_SIZE
 AZNCC_IVP = "annulus_azncc%dx%d ivp" % AZNCC_SIZE
 RESULTS = {}
@@ -4104,6 +4154,299 @@ def coupled_phase(card):
     return out
 
 
+def runside_loop(label, solver, **kw):
+    """One `solver.evolve_resilient` run at RUNSIDE_DT with the kernel's
+    counts set to 0 just before it and read just after: the launches
+    must equal the solve plan's count for what the loop executed, i.e.
+    every step taken (those a rewind undid and each SDC re-execution
+    included) x stages x (1 + sweeps), one Woodbury launch a
+    factorization, and one solve a phase sample (two at the sampler's
+    first). Returns (summary, record)."""
+    import torch
+    from dedalus_tpu_torch.core import fusedstep
+    ts, m = solver.timestepper, solver.metrics
+    it0, f0 = solver.iteration, ts.factorizations
+    samples0 = m.counter("phase_samples").value
+    warm0 = "matsolve" in m._warmed
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    summary = solver.evolve_resilient(
+        dt=RUNSIDE_DT, snapshot_cadence=RUNSIDE_SNAPSHOT_CADENCE,
+        retry_base_delay=0.0, log_cadence=0, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fusedstep.LAUNCHES)
+    undone = sum(e["failure_iteration"] - e["rewind_iteration"]
+                 for e in summary.get("lineage", [])
+                 if e.get("rewind_iteration") is not None)
+    event = solver.resilience.resume_event
+    if event is not None:
+        it0 = event["iteration"]        # the loop steps from the resume
+    executed = (solver.iteration - it0) + undone \
+        + summary.get("sdc_checks", 0)
+    factors = ts.factorizations - f0
+    sampled = m.counter("phase_samples").value - samples0 \
+        + int(not warm0 and "matsolve" in m._warmed)
+    per_solve = 1 + solver.ops.sweeps
+    expect = executed * ts.stages * per_solve + factors + sampled * per_solve
+    rec = {"iterations": [it0, solver.iteration], "wall_s": wall,
+           "steps_executed": executed, "factorizations": factors,
+           "phase_sample_solves": sampled, "launches": launches,
+           "expected_launches": expect,
+           "summary": {k: v for k, v in summary.items()
+                       if k in ("rewinds", "retries", "snapshots", "dt_limit",
+                                "stopped_by", "sdc_checks", "sdc_detected",
+                                "checkpoint", "timing", "resumed_from")},
+           "lineage": [{k: e.get(k) for k in (
+               "failure_iteration", "outcome", "rewind_iteration",
+               "dt_limit")} for e in summary.get("lineage", [])]}
+    log(f"runside {label} " + json.dumps(rec, default=str))
+    if launches["banded_subst"] != expect or \
+            sum(launches.values()) != launches["banded_subst"]:
+        fail(f"runside {label}: launches {launches} != expected {expect}")
+    return summary, rec
+
+
+def runside_phase(card):
+    """Phase 25: the run-side tools at RB 2048x1024 through the public
+    API (see the module docstring). Returns the phase's record."""
+    import tempfile
+    import numpy as np
+    import torch
+    from dedalus_tpu_torch.extras.bench_problems import build_rb_solver
+    from dedalus_tpu_torch.tools import chaos, dcheckpoint, resilience
+    from dedalus_tpu_torch.tools.metrics import format_phase_table
+    out = {"card": card, "size": "%dx%d" % RUNSIDE_SIZE}
+    tmp = tempfile.TemporaryDirectory(prefix="runside_")
+    root = pathlib.Path(tmp.name)
+    sink, ck, ck_stop = root / "metrics.jsonl", root / "ckpt", \
+        root / "ckpt_stop"
+    torch.cuda.reset_peak_memory_stats()
+    dt = RUNSIDE_DT
+    sdc = {"sdc_cadence": RUNSIDE_SDC_CADENCE}
+    async_ckpt = {"checkpoint_format": "sharded", "checkpoint_async": True}
+
+    def build():
+        t0 = time.perf_counter()
+        solver, _ = build_rb_solver(
+            *RUNSIDE_SIZE, np.float64, matsolver="banded", device="cuda",
+            metrics=True, metrics_file=str(sink),
+            sample_cadence=RUNSIDE_SAMPLE_CADENCE, health=True,
+            health_cadence=RUNSIDE_HEALTH_CADENCE,
+            postmortem_dir=str(root / "postmortems"))
+        torch.cuda.synchronize()
+        return solver, time.perf_counter() - t0
+
+    # the clean run: a checkpoint at RUNSIDE_CKPT_AT (async, sharded),
+    # then on to RUNSIDE_CLEAN without one
+    A, out["build_s"] = build()
+    out["pencil_shape"] = list(A.pencil_shape)
+    A.stop_iteration = RUNSIDE_CKPT_AT
+    s1, out["clean_to_checkpoint"] = runside_loop(
+        "clean 0-%d" % RUNSIDE_CKPT_AT, A, checkpoint_dir=ck, **async_ckpt,
+        **sdc)
+    A.stop_iteration = RUNSIDE_CLEAN
+    s2, out["clean_on"] = runside_loop(
+        "clean %d-%d" % (RUNSIDE_CKPT_AT, RUNSIDE_CLEAN), A, **sdc)
+    X_ref, t_ref = A.X.clone(), A.sim_time
+    ckpt = s1["checkpoint"]
+    out["checkpoint_stall_s_per_write"] = ckpt["stall_sec"] / max(
+        ckpt["written"], 1)
+    out["checkpoint_bytes"] = ckpt["bytes_written"]
+    out["resilient_loop_steps_per_s"] = \
+        (RUNSIDE_CLEAN - RUNSIDE_CKPT_AT) / out["clean_on"]["wall_s"]
+    bad = [f"{k}: {v}" for k, v in (
+        ("stopped_by", s1["stopped_by"]), ("stopped_by", s2["stopped_by"]))
+        if v != "completed"]
+    bad += [f"sdc_detected {s['sdc_detected']}" for s in (s1, s2)
+            if s["sdc_detected"]]
+    if ckpt["written"] < 1 or ckpt["errors"]:
+        bad.append(f"checkpoint {ckpt}")
+    if bad:
+        fail(f"runside clean run: {bad}")
+    del A
+    release()
+
+    # a fresh solver resumes from the checkpoint and steps to the clean
+    # run's end: bit-equal; its warmup (the first phase sample and health
+    # record) just after the resume
+    B, out["resume_build_s"] = build()
+    B.warmup_iterations = RUNSIDE_CKPT_AT + 2
+    B.stop_iteration = RUNSIDE_CLEAN
+    s3, out["resume"] = runside_loop("resume", B, checkpoint_dir=ck,
+                                     checkpoint_format="sharded",
+                                     resume=True, **sdc)
+    out["resume_s"] = s3["timing"]["resume_sec"]
+    out["resumed_bit_equal"] = bool(torch.equal(B.X, X_ref)) \
+        and B.sim_time == t_ref
+    log(f"runside resume: {out['resume_s']:.3f} s, bit-equal "
+        f"{out['resumed_bit_equal']} at iteration {B.iteration}")
+    if not out["resumed_bit_equal"] or not s3.get("resumed_from"):
+        fail("runside: the resumed state is not the uninterrupted one")
+    del X_ref
+
+    # chaos: a NaN after RUNSIDE_NAN_AFTER steps, found by the health
+    # probe: one rewind with the dt backoff (its refactor, and the one
+    # when the cap relaxes after a clean snapshot cadence)
+    start = B.iteration
+    B.stop_iteration = start + RUNSIDE_CHAOS_STEPS
+    inj = chaos.ChaosInjector(nan_field="b",
+                              nan_iteration=start + RUNSIDE_NAN_AFTER)
+    s4, out["nan"] = runside_loop("nan", B, chaos=inj, **sdc)
+    lineage = s4.get("lineage", [])
+    out["rewind_s"] = s4["timing"]["rewind_sec"]
+    if not (s4["rewinds"] == 1 and len(lineage) == 1
+            and lineage[0]["dt_limit"] == dt * B.resilience.dt_backoff
+            and [f["kind"] for f in inj.fired] == ["nan"]
+            and s4["sdc_detected"] == 0 and B.health_error is None
+            and bool(torch.isfinite(B.X).all())):
+        fail(f"runside nan: {out['nan']}")
+
+    # a flipped mantissa bit on a checked step: one detection, a rewind
+    # without backoff, and the state of a clean re-run of the same steps
+    anchor = resilience.capture_snapshot(B)
+    B.stop_iteration = B.iteration + RUNSIDE_FLIP_STEPS
+    inj = chaos.ChaosInjector(seed=3, flip_bit_iteration=B.iteration + 1)
+    s5, out["flip"] = runside_loop("bit flip", B, chaos=inj, **sdc)
+    X_flip = B.X.clone()
+    resilience.restore_snapshot(B, anchor)
+    s6, out["flip_clean"] = runside_loop("clean re-run", B, **sdc)
+    out["sdc_check_s"] = s5["timing"]["sdc_check_sec"] \
+        + s6["timing"]["sdc_check_sec"]
+    out["flip_recovered_bit_equal"] = bool(torch.equal(B.X, X_flip))
+    if not (s5["sdc_detected"] == 1 and s5["rewinds"] == 1
+            and s5["dt_limit"] is None and s6["sdc_detected"] == 0
+            and [f["kind"] for f in inj.fired] == ["flip_bit"]
+            and out["flip_recovered_bit_equal"]):
+        fail(f"runside bit flip: {out['flip']} {out['flip_clean']} "
+             f"bit-equal {out['flip_recovered_bit_equal']}")
+    del anchor, X_flip
+
+    # SIGTERM: a graceful stop and a final checkpoint after a periodic
+    # one; the newest corrupted, a resume falls back to the periodic one
+    kept = {}
+    periodic = B.iteration + RUNSIDE_STOP_CKPT_ITER
+
+    def keep(solver):
+        if solver.iteration == periodic:
+            kept["X"] = solver.X.clone()
+    B.stop_iteration = B.iteration + 10 * RUNSIDE_SIGTERM_AFTER
+    inj = chaos.ChaosInjector(
+        sigterm_iteration=B.iteration + RUNSIDE_SIGTERM_AFTER)
+    s7, out["sigterm"] = runside_loop(
+        "sigterm", B, chaos=inj, checkpoint_dir=ck_stop,
+        checkpoint_iter=RUNSIDE_STOP_CKPT_ITER, step_hook=keep,
+        **async_ckpt)
+    ckpts = dcheckpoint.list_checkpoints(ck_stop)
+    final_meta = dcheckpoint.read_manifest(ckpts[-1])["meta"] if ckpts \
+        else {}
+    if not (s7["stopped_by"] == "SIGTERM" and len(ckpts) == 2
+            and final_meta.get("iteration") == B.iteration
+            and s7["checkpoint"]["errors"] == 0 and "X" in kept):
+        fail(f"runside sigterm: {out['sigterm']} checkpoints {ckpts}")
+    chaos.corrupt_shard(ckpts[-1], mode="garbage")
+    B.stop_iteration = periodic
+    s8, out["fallback"] = runside_loop(
+        "corrupt newest", B, checkpoint_dir=ck_stop,
+        checkpoint_format="sharded", resume=True)
+    event = B.resilience.resume_event
+    out["fallback_event"] = {"iteration": event["iteration"],
+                             "fallbacks": event["fallbacks"]}
+    if not (event["iteration"] == periodic and len(event["fallbacks"]) == 1
+            and "quarantined" in event["fallbacks"][0]
+            and torch.equal(B.X, kept["X"])):
+        fail(f"runside fallback: {out['fallback_event']}")
+    del kept
+
+    # HDF5 output: h5py is optional on this machine
+    try:
+        import h5py
+    except ImportError:
+        h5py = None
+    if h5py is None:
+        try:
+            B.evaluator.add_file_handler(root / "snaps", iter=1)
+        except ImportError as exc:
+            out["file_handler"] = f"ImportError: {exc}"
+            if "h5py" not in str(exc):
+                fail(f"runside: the ImportError does not name h5py: {exc}")
+        else:
+            fail("runside: add_file_handler without h5py did not raise")
+    else:
+        handler = B.evaluator.add_file_handler(root / "snaps", iter=1,
+                                               max_writes=1)
+        b = next(v for v in B.variables if v.name == "b")
+        handler.add_task(b, layout="c", name="b")
+        B.evaluator.evaluate_handlers([handler], iteration=B.iteration,
+                                      sim_time=B.sim_time, timestep=dt)
+        with h5py.File(handler.current_file, "r") as f:
+            data = np.asarray(f["tasks/b"])[0]
+        ok = np.array_equal(data, np.asarray(b["c"]))
+        out["file_handler"] = f"one set written and read back: {ok}"
+        B.evaluator.handlers.remove(handler)
+        if not ok:
+            fail("runside: the FileHandler's set does not read back")
+    log(f"runside FileHandler: {out['file_handler']}")
+
+    # host reads of single steps: 0 off the cadences, the probe's one on
+    # a health step, the sampler's on a sample step (one stream
+    # synchronization, then one after each timed thunk: the RHS
+    # evaluation, the solve and the transform roundtrip)
+    B.stop_iteration = np.inf
+    B.step(dt)                  # the factor after the resume
+    B.health.cadence = 4
+    B.metrics.reset_loop()
+    thunks = 3
+    syncs, expect = [], []
+    for k in range(1, RUNSIDE_SAMPLE_CADENCE + 1):
+        n, _ = host_syncs(lambda: B.step(dt), reps=1)
+        syncs.append(n)
+        expect.append((k % 4 == 0) + (
+            1 + thunks if k == RUNSIDE_SAMPLE_CADENCE else 0))
+    out["host_syncs_by_step"] = {"measured": syncs, "expected": expect}
+    log(f"runside host syncs by step {syncs} (expected {expect})")
+    if syncs != expect:
+        fail(f"runside host syncs {syncs} != expected {expect}")
+
+    # steps/s of a step loop with the layers on (their cadences crossed)
+    # and off (the same solver, both layers disabled)
+    rates = {}
+    for layers in ("on", "off"):
+        if layers == "off":
+            B.metrics.enabled = B.metrics.sampling = False
+            B.health.enabled = False
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(RUNSIDE_TIMED_STEPS):
+            B.step(dt)
+        torch.cuda.synchronize()
+        rates[layers] = RUNSIDE_TIMED_STEPS / (time.perf_counter() - t0)
+    out["steps_per_s_layers"] = rates
+    out["max_memory_allocated_GB"] = torch.cuda.max_memory_allocated() / 1e9
+    records = [json.loads(line) for line in sink.read_text().splitlines()
+               if '"step_metrics"' in line]
+    last = next((r for r in reversed(records) if r.get("phase_samples")),
+                None)
+    out["phase_table"] = format_phase_table(last)
+    for line in out["phase_table"]:
+        log("runside " + line)
+    out["launches"] = sum(out[k]["launches"]["banded_subst"] for k in (
+        "clean_to_checkpoint", "clean_on", "resume", "nan", "flip",
+        "flip_clean", "sigterm", "fallback"))
+    summary = {k: out[k] for k in (
+        "build_s", "resume_build_s", "resilient_loop_steps_per_s",
+        "steps_per_s_layers", "checkpoint_stall_s_per_write",
+        "checkpoint_bytes", "resume_s", "rewind_s", "sdc_check_s",
+        "max_memory_allocated_GB", "resumed_bit_equal",
+        "flip_recovered_bit_equal", "launches", "card")}
+    log("runside " + json.dumps(summary))
+    del B
+    tmp.cleanup()
+    release()
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[1])
     parser.add_argument("--steps", type=int, default=50)
@@ -4120,6 +4463,12 @@ def main():
     import numpy as np
     from dedalus_tpu_torch.core import fusedstep
     from dedalus_tpu_torch.extras.bench_problems import build_rb_solver
+    from dedalus_tpu_torch.tools.config import config
+    # phases 1-24 measure the step path with the run-side layers off (a
+    # solver with both off runs what it ran before them, and their launch
+    # and host-sync counts hold as they were); phase 25 turns them on
+    config["profiling"]["METRICS_DEFAULT"] = "False"
+    config["health"]["HEALTH_DEFAULT"] = "False"
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -4672,6 +5021,14 @@ def main():
     # joint NCC (dense)
     coupled = RESULTS["coupled"] = coupled_phase(card)
     phase_done("24 coupled pencils")
+
+    # --------------------------------------------------------- phase 25
+    # the run-side tools at RB 2048x1024 with both layers on: the
+    # resilient loop's clean run, resume, NaN, bit flip and SIGTERM
+    # (their launches counted from 0 around each loop), host reads of
+    # single steps, steps/s with the layers on and off
+    runside = RESULTS["runside"] = runside_phase(card)
+    phase_done("25 run-side tools")
     # times and bound at each kernel's main path shapes (the solve's
     # kernel at rb3d_128's own factor operators, q = 80, f64; the
     # transposed solve's at the rb2048x1024 shapes, the gradients' main
@@ -4725,7 +5082,8 @@ def main():
                AZNCC_IVP + " step_many": coupled[AZNCC_IVP][
                    "step_many"]["launches"]["replay"],
                f"poisson_rect{RECT_N}": coupled[f"poisson_rect{RECT_N}"][
-                   "launches"]}
+                   "launches"],
+               "rb%dx%d run-side" % RUNSIDE_SIZE: runside["launches"]}
     # each transposed entry's main path: the rb2048x1024 value_and_grad,
     # and for the bf16 one the sphere's gradient under the bf16 ladder
     main_grad = {"banded_subst_T": grads[f"rb{Nx}x{Nz}"]["runs"][0],

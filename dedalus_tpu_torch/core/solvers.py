@@ -11,8 +11,17 @@ The solver holds the state as ONE device tensor X of shape (G, S) (all
 pencils batched); fields are synchronized at step boundaries so user code
 sees reference-like Field semantics while the step loop stays on the
 device (reference hot loop anatomy: core/solvers.py:683-711).
+
+An IVP carries the run-side layers of the JAX package: `metrics`
+(tools/metrics.py: counters, sampled phase timers, the memory watermark,
+a JSONL sink), `health` (tools/health.py: the cadence-gated state probe
+and the flight recorder) and `build_phases`; `evolve` runs the main loop,
+`evolve_resilient` the resilient one (tools/resilience.py) and
+`load_state` restores an HDF5 checkpoint. With both layers off
+(`metrics=False, health=False`) a step runs what it ran before them.
 """
 
+import contextlib
 import logging
 import time as time_mod
 
@@ -35,6 +44,8 @@ from ..libraries import matsolvers, pencilops, solvecomp
 from ..tools.array import torch_dtype, to_numpy, scipy_sparse_eigs
 from ..tools.config import config
 from ..tools.general import is_complex_dtype
+from ..tools import health as health_mod
+from ..tools import metrics as metrics_mod
 
 logger = logging.getLogger(__name__)
 
@@ -584,15 +595,21 @@ class InitialValueSolver(SolverBase):
 
     def __init__(self, problem, timestepper, matsolver=None,
                  enforce_real_cadence=100, warmup_iterations=10,
-                 matrix_coupling=None):
+                 matrix_coupling=None, metrics=None, metrics_file=None,
+                 sample_cadence=None, health=None, health_cadence=None,
+                 postmortem_dir=None):
         init_t0 = time_mod.time()
         super().__init__(problem, matsolver=matsolver,
                          matrix_coupling=matrix_coupling)
-        self._upload_matrices()
+        self.build_phases = metrics_mod.BuildPhases(self.build_seconds)
+        with self.build_phases.scope("factor"):
+            self._upload_matrices()
         self.eval_F = self.build_rhs_evaluator("F", time_field=problem.time)
         # timestepping state and the run loop's stop conditions
         self.sim_time = 0.0
+        self.initial_sim_time = 0.0
         self.iteration = 0
+        self.initial_iteration = 0
         self.stop_sim_time = np.inf
         self.stop_wall_time = np.inf
         self.stop_iteration = np.inf
@@ -607,6 +624,24 @@ class InitialValueSolver(SolverBase):
         from .evaluator import Evaluator
         self.evaluator = Evaluator(self)
         self.dt = None
+        # step-loop metrics (tools/metrics.py): default-on per [profiling];
+        # an off-cadence step pays host bookkeeping only
+        self.metrics = metrics_mod.resolve(
+            metrics, sink=metrics_file, cadence=sample_cadence,
+            meta={"backend": self.dist.device.type,
+                  "dtype": str(np.dtype(self.pencil_dtype)),
+                  "pencil_shape": list(self.pencil_shape)},
+            device=self.dist.device)
+        self._metrics_warm_pending = False
+        # an interrupted run still flushes one telemetry record
+        metrics_mod.register_exit_flush(self)
+        # numerical-health monitor (tools/health.py): default-on per
+        # [health]; a disabled one runs no probe but keeps the structured
+        # invalid-dt error
+        self.health = health_mod.resolve(
+            health, solver=self, cadence=health_cadence,
+            postmortem_dir=postmortem_dir)
+        self._health_error = None
         self._setup_time = time_mod.time() - init_t0
 
     def differentiable(self, wrt=("initial_state",), loss=None,
@@ -649,8 +684,16 @@ class InitialValueSolver(SolverBase):
         self.timestepper.drop_factor()
 
     @property
+    def health_error(self):
+        """The SolverHealthError that halted the run (None while healthy)."""
+        return self._health_error
+
+    @property
     def proceed(self):
         """Whether to keep iterating (reference: core/solvers.py:618)."""
+        if self._health_error is not None:
+            # logged once at detection (health monitor): a graceful halt
+            return False
         if self.sim_time >= self.stop_sim_time:
             logger.info("Simulation stop time reached.")
             return False
@@ -693,16 +736,58 @@ class InitialValueSolver(SolverBase):
                                                    tensorsig=v.tensorsig)
         return gather_state(self.layout, self.variables, out)
 
+    def _end_warmup(self):
+        """Warmup end (dedalus_tpu/core/solvers.py:852): a first phase
+        sample and a baseline health record, then the loop window of the
+        metrics and of log_stats starts. A caller of step_many alone
+        reaches this before the first block has factored the LHS: the
+        first sample then waits for the end of that block."""
+        self._metrics_warm_pending = False
+        if self.metrics.sampling:
+            if not self._try_sample_phases():
+                self._metrics_warm_pending = self.metrics.sampling
+        self.health.warm(self.X)
+        self.metrics.reset_loop()
+        self._synchronize()
+        self.warmup_time = time_mod.time()
+
+    def _annotate(self, label):
+        """A profiler range around a step while metrics are on; nothing
+        with them off."""
+        if self.metrics.enabled:
+            return metrics_mod.annotate(label)
+        return contextlib.nullcontext()
+
+    def _after_steps(self, n, dt):
+        """The step hooks (dedalus_tpu/core/solvers.py:909-927): fields see
+        the new state, the counters advance, the metrics and health ticks
+        run at their cadences, and the scheduled handlers run unless the
+        health probe found the state poisoned."""
+        self.defer_scatter(self.X)
+        self.snapshot_versions()
+        self.problem.sim_time = self.sim_time
+        self.iteration += n
+        self.dt = dt
+        self._metrics_tick(n)
+        self.health.tick(n)
+        if self._health_error is None:
+            # a poisoned step must not flow into scheduled outputs (no
+            # NaN-filled checkpoint written as a good write)
+            self.evaluator.evaluate_scheduled(
+                iteration=self.iteration,
+                wall_time=time_mod.time() - self.start_time,
+                sim_time=self.sim_time, timestep=dt)
+
     def step(self, dt):
         """Advance the system by one timestep, then evaluate the handlers
         that are due (reference: core/solvers.py:683)."""
         dt = float(dt)
         if not np.isfinite(dt):
-            raise ValueError(f"Invalid timestep: {dt}")
+            # structured: names the iteration and dumps the flight
+            # recorder; a SolverHealthError is a ValueError
+            raise self.health.invalid_dt(dt)
         if self.iteration == self.warmup_iterations:
-            # the run window of log_stats starts after the queued warmup
-            self._synchronize()
-            self.warmup_time = time_mod.time()
+            self._end_warmup()
         # pick up user modifications of the state fields (version-tracked)
         if self.fields_dirty():
             self.X = self.gather_fields()
@@ -712,16 +797,9 @@ class InitialValueSolver(SolverBase):
         if self.enforce_real_cadence:
             if self.iteration % self.enforce_real_cadence < self.timestepper.steps:
                 self.enforce_hermitian_symmetry()
-        self.timestepper.step(dt)
-        self.defer_scatter(self.X)
-        self.snapshot_versions()
-        self.problem.sim_time = self.sim_time
-        self.iteration += 1
-        self.dt = dt
-        self.evaluator.evaluate_scheduled(
-            iteration=self.iteration,
-            wall_time=time_mod.time() - self.start_time,
-            sim_time=self.sim_time, timestep=dt)
+        with self._annotate("dedalus/step"):
+            self.timestepper.step(dt)
+        self._after_steps(1, dt)
 
     def step_many(self, n, dt):
         """
@@ -738,12 +816,11 @@ class InitialValueSolver(SolverBase):
         n = int(n)
         dt = float(dt)
         if not np.isfinite(dt):
-            raise ValueError(f"Invalid timestep: {dt}")
+            raise self.health.invalid_dt(dt)
         if n <= 0:
             return
         if self.iteration <= self.warmup_iterations < self.iteration + n:
-            self._synchronize()
-            self.warmup_time = time_mod.time()
+            self._end_warmup()
         if self.fields_dirty():
             self.X = self.gather_fields()
         cadence = self.enforce_real_cadence
@@ -752,21 +829,253 @@ class InitialValueSolver(SolverBase):
             if (n >= cadence or r < self.timestepper.steps
                     or (cadence - r) < n):
                 self.enforce_hermitian_symmetry()
-        self.timestepper.step_many(n, dt)
-        self.defer_scatter(self.X)
-        self.snapshot_versions()
-        self.problem.sim_time = self.sim_time
-        self.iteration += n
+        with self._annotate("dedalus/step_many"):
+            self.timestepper.step_many(n, dt)
+        self.metrics.inc("step_many_blocks")
+        self._after_steps(n, dt)
+
+    # -------------------------------------------------------------- metrics
+
+    def _metrics_tick(self, n):
+        """Per-step metrics hook: count iterations (no device wait) and
+        run the cadence-gated phase sample, the only point that waits for
+        the device, every SAMPLE_CADENCE-th post-warmup iteration."""
+        m = self.metrics
+        if not m.enabled:
+            return
+        m.observe_steps(n)
+        if not (m.sampling and self.warmup_time is not None):
+            return
+        if self._metrics_warm_pending:
+            # deferred first sample (a caller of step_many alone): sample now
+            # and re-anchor the loop window past the factoring block
+            self._metrics_warm_pending = False
+            self._try_sample_phases()
+            m.reset_loop()
+            return
+        if m.due():
+            self._try_sample_phases()
+
+    def _try_sample_phases(self):
+        """_sample_phases behind a telemetry firewall: a failing sample
+        turns sampling off with a warning instead of ending the run.
+        Returns whether a sample was recorded."""
+        try:
+            return self._sample_phases()
+        except Exception as exc:
+            logger.warning(f"metrics phase sampling disabled: {exc}")
+            self.metrics.sampling = False
+            return False
+
+    def _sample_phases(self):
+        """
+        One phase sample (dedalus_tpu/core/solvers.py:1015): wait for the
+        device, then wall-time the step pieces (the timestepper's probes
+        and the dealiased transform roundtrip) on the current state, each
+        between two device synchronizations. The transform share of the
+        RHS evaluation is measured by the roundtrip and subtracted, so
+        transform/evaluator/matsolve/transpose sum to about one step. The
+        solve probe launches the substitution kernel on the banded path.
+        Returns True when a sample was recorded (False: no factor yet).
+        """
+        m = self.metrics
+        probes = self.timestepper.phase_probes()
+        if probes is None:
+            return False
+        with metrics_mod.annotate("dedalus/metrics/sample"):
+            m.synchronize()
+            scale = float(getattr(self.timestepper, "stages", 1) or 1)
+            X = self.X
+            times = {name: m.time_thunk(name, thunk) * s
+                     for name, (thunk, s) in probes.items()}
+            trans = m.time_thunk("transform",
+                                 lambda: self.project_state(X)) * scale
+            rhs = times.get("rhs_eval", 0.0)
+            trans = min(trans, rhs) if rhs else trans
+            m.add_phase_sample({
+                "transform": trans,
+                "evaluator": max(rhs - trans, 0.0),
+                "matsolve": times.get("matsolve", 0.0),
+                "transpose": times.get("transpose", 0.0),
+            })
+        return True
+
+    def flush_metrics(self, extra=None):
+        """Wait for the device (so the loop window covers the queued
+        work) and flush one telemetry record, appended to the JSONL sink
+        when one is set; the health summary, the resilience summary, the
+        build phases and the plan ride along (dedalus_tpu/core/
+        solvers.py:1057). Returns the record dict."""
+        self._synchronize()
+        extra = dict(extra or {})
+        health_summary = self.health.summary()
+        if health_summary is not None:
+            extra.setdefault("health", health_summary)
+        resilience = getattr(self, "resilience", None)
+        if resilience is not None:
+            extra.setdefault("resilience", resilience.summary())
+        extra.setdefault("build_phases", self.build_phases.record())
+        extra.setdefault("plan", self.plan_provenance())
+        return self.metrics.flush(extra=extra)
+
+    # ----------------------------------------------------------- run loops
+
+    def evolve(self, timestep_function=None, log_cadence=100):
+        """Run the main loop to completion (reference: core/solvers.py:713;
+        dedalus_tpu/core/solvers.py:1198)."""
+        try:
+            while self.proceed:
+                dt = timestep_function() if timestep_function else self.dt
+                if dt is None:
+                    raise ValueError(
+                        "evolve() requires a timestep_function, or a prior "
+                        "solver.step(dt) to set the timestep.")
+                self.step(dt)
+                if self.iteration % log_cadence == 0:
+                    logger.info(f"Iteration={self.iteration}, "
+                                f"Time={self.sim_time:.6e}, dt={dt:.6e}")
+            if self._health_error is not None:
+                logger.error(
+                    f"Main loop halted by health monitor: "
+                    f"{self._health_error.reason} (error available as "
+                    f"solver.health_error)")
+        except Exception:
+            logger.error("Exception raised, triggering end of main loop.")
+            raise
+        finally:
+            self.log_stats()
+
+    def evolve_resilient(self, timestep_function=None, dt=None,
+                         log_cadence=100, **kw):
+        """
+        Run the main loop under the resilient loop
+        (tools/resilience.ResilientLoop; dedalus_tpu/core/solvers.py:1156):
+        a ring of state snapshots, rewind with dt backoff on a
+        SolverHealthError, SIGTERM/SIGINT-safe durable checkpoints with
+        validated resume, the SDC sentinel and transient-IO retry. Keyword
+        arguments (snapshot_cadence, max_retries, dt_backoff,
+        checkpoint_dir, checkpoint_format, resume, sdc_cadence, chaos,
+        ...) configure the loop; defaults come from [resilience]. Returns
+        the loop's summary dict.
+        """
+        from ..tools.resilience import ResilientLoop
+        loop = ResilientLoop(self, timestep_function=timestep_function,
+                             dt=dt, **kw)
+        try:
+            return loop.run(log_cadence=log_cadence)
+        finally:
+            self.log_stats()
+
+    # ---------------------------------------------------------- checkpoints
+
+    def load_state(self, path, index=-1, allow_missing=False,
+                   fallback=False):
+        """Restore state from an HDF5 checkpoint (reference:
+        core/solvers.py:632 load_state; dedalus_tpu/core/solvers.py:1238).
+        A truncated or corrupt file raises a CheckpointError naming the
+        file and write index. With `fallback=True` a corrupt write falls
+        back to the previous writes of the same file (the newest
+        surviving write wins); tools.resilience.resume_latest extends the
+        fallback across set files. Returns (write number, dt). Needs
+        h5py."""
+        import h5py
+        from ..tools.exceptions import CheckpointError
+        try:
+            f = h5py.File(path, "r")
+        except OSError as exc:
+            raise CheckpointError(
+                f"checkpoint {path} unreadable (truncated or corrupt): "
+                f"{exc}", path=path) from exc
+        with f:
+            try:
+                n_writes = len(f["scales/write_number"])
+            except KeyError as exc:
+                raise CheckpointError(
+                    f"checkpoint {path} has no scales/write_number "
+                    f"(not a handler file?)", path=path) from exc
+            if n_writes == 0:
+                raise CheckpointError(
+                    f"checkpoint {path} has an empty write index",
+                    path=path)
+            start = index if index >= 0 else n_writes + index
+            if not 0 <= start < n_writes:
+                raise CheckpointError(
+                    f"checkpoint {path}: write index {index} out of range "
+                    f"({n_writes} writes)", path=path, index=index)
+            candidates = range(start, -1, -1) if fallback else (start,)
+            failures = []
+            for idx in candidates:
+                try:
+                    self._load_write(f, path, idx, allow_missing)
+                except CheckpointError as exc:
+                    if not fallback:
+                        raise
+                    failures.append(str(exc))
+                    logger.warning(f"checkpoint write unusable, "
+                                   f"falling back: {exc}")
+                    continue
+                if failures:
+                    logger.info(f"loaded write {idx} of {path} after "
+                                f"{len(failures)} fallback(s)")
+                write = int(np.asarray(f["scales/write_number"])[idx])
+                break
+            else:
+                raise CheckpointError(
+                    f"checkpoint {path}: no loadable write at or before "
+                    f"index {index} ({'; '.join(failures)})",
+                    path=path, index=index)
+        self.X = self.gather_fields()
+        return write, self.dt
+
+    def _load_write(self, f, path, idx, allow_missing):
+        """Load ONE write of an open checkpoint file into the solver; a
+        data-level corruption (h5py OSError/ValueError) becomes a
+        CheckpointError. The clocks are set only after every field read
+        back."""
+        from ..tools.exceptions import CheckpointError
+        try:
+            sim_time = float(np.asarray(f["scales/sim_time"])[idx])
+            iteration = int(np.asarray(f["scales/iteration"])[idx])
+            dt = float(np.asarray(f["scales/timestep"])[idx]) \
+                if "scales/timestep" in f else None
+            tasks = f["tasks"]
+            data = {}
+            for var in self.state:
+                if var.name not in tasks:
+                    if allow_missing:
+                        continue
+                    raise KeyError(
+                        f"State variable {var.name} not found in {path}")
+                ds = tasks[var.name]
+                if len(ds) <= idx:
+                    raise CheckpointError(
+                        f"checkpoint {path} write {idx}: task "
+                        f"'{var.name}' has only {len(ds)} write(s) "
+                        f"(torn write)", path=path, index=idx)
+                layout = ds.attrs.get("layout", "g")
+                if isinstance(layout, bytes):
+                    layout = layout.decode()
+                data[var.name] = (layout, np.asarray(ds[idx]))
+        except CheckpointError:
+            raise
+        except (OSError, ValueError, IndexError) as exc:
+            raise CheckpointError(
+                f"checkpoint {path} write {idx} unreadable: {exc}",
+                path=path, index=idx) from exc
+        for var in self.state:
+            if var.name in data:
+                layout, arr = data[var.name]
+                var[layout if layout in ("c", "g") else "g"] = arr
+        self.sim_time = self.initial_sim_time = sim_time
+        self.iteration = self.initial_iteration = iteration
         self.dt = dt
-        self.evaluator.evaluate_scheduled(
-            iteration=self.iteration,
-            wall_time=time_mod.time() - self.start_time,
-            sim_time=self.sim_time, timestep=dt)
+        logger.info(f"Loading iteration: {iteration} (write index {idx})")
 
     def log_stats(self, format=".4g"):
         """Log run statistics with the reference's throughput metric,
         mode-stages per second over the iterations after warmup
-        (reference: core/solvers.py:755-778 log_stats)."""
+        (reference: core/solvers.py:755-778 log_stats), the sampled phase
+        table and the health summary."""
         self._synchronize()
         log_time = time_mod.time()
         logger.info(f"Final iteration: {self.iteration}")
@@ -795,6 +1104,18 @@ class InitialValueSolver(SolverBase):
         if self._solve_plan.dtype != "native":
             logger.info("Precision: " + ", ".join(
                 f"{k} {v}" for k, v in self._precision_summary().items()))
+        if self.metrics.enabled:
+            record = self.flush_metrics()
+            if record and record.get("phase_samples"):
+                for line in metrics_mod.format_phase_table(record):
+                    logger.info(line)
+        health_summary = self.health.summary()
+        if health_summary is not None:
+            status = "ok" if health_summary.get("ok") else \
+                f"FAILED ({health_summary.get('reason')})"
+            logger.info(f"Health: {status}, "
+                        f"{health_summary.get('checks', 0)} checks, "
+                        f"{health_summary.get('warnings', 0)} warnings")
 
     def plan_provenance(self):
         """The execution plan this solver was built under (resolved once

@@ -34,6 +34,14 @@ any dt change run as single steps until the coefficients are stationary,
 then the remaining steps run the same step body `_advance` at those
 coefficients. On a CUDA solver that body is recorded once as a CUDA
 graph and replayed per step (core/stepgraph.py); on the CPU it is a loop.
+
+`capture_state()` / `restore_state(state)` carry what a resilience
+snapshot or a checkpoint needs besides the solver's X and clocks: the
+iteration count and, for a multistep scheme, the F, M.X and L.X
+histories (device copies, stacked (s, G, S) as the JAX package keeps
+them) and the dt history (tools/resilience.py capture_snapshot).
+`phase_probes()` gives the metrics sampler its measurement thunks
+(dedalus_tpu/core/timesteppers.py:387 and :740).
 """
 
 import numpy as np
@@ -109,6 +117,7 @@ class BlockStepper:
 
     _graph = None
     _stream = None
+    _probe_cache = None
     recordings = 0
 
     def drop_factor(self):
@@ -116,6 +125,18 @@ class BlockStepper:
         factors the solver's current M, L and ops."""
         self._lhs_key = self._lhs_aux = None
         self._graph = None
+        self._probe_cache = None
+
+    def capture_state(self):
+        """The timestepper state a snapshot or checkpoint carries: the
+        iteration count (a one-step scheme has no other)."""
+        return {"iteration": int(self.iteration)}
+
+    def restore_state(self, state):
+        """Put a captured state back and drop the factorization (the next
+        step refactors for its own dt)."""
+        self.iteration = int(state["iteration"])
+        self.drop_factor()
 
     def _advance_in_place(self, X, t, dt):
         return self._advance(X, t, dt)
@@ -317,6 +338,64 @@ class MultistepIMEX(BlockStepper):
                     own[j].copy_(hist[j])
                     hist[j] = own[j]
 
+    def capture_state(self):
+        """Iteration, dt history and the three histories as (s, G, S)
+        device copies (a recorded step writes the live buffers in place,
+        so a reference would not keep them)."""
+        state = super().capture_state()
+        state["dt_hist"] = list(self.dt_hist)
+        for name in ("F_hist", "MX_hist", "LX_hist"):
+            state[name] = torch.stack(getattr(self, name))
+        return state
+
+    def restore_state(self, state):
+        """Copy the captured histories into the live buffers (the
+        snapshot keeps its own copy for a second rewind)."""
+        self.load_histories(state["F_hist"], state["MX_hist"],
+                            state["LX_hist"], state["dt_hist"])
+        super().restore_state(state)
+
+    def load_histories(self, F, MX, LX, dt_hist):
+        """Histories from (s, G, S) arrays (tensors or host arrays, as a
+        checkpoint holds them) into the live buffers, and the dt
+        history."""
+        for name, saved in (("F_hist", F), ("MX_hist", MX), ("LX_hist", LX)):
+            saved = torch.as_tensor(saved)
+            for hist, row in zip(getattr(self, name), saved):
+                hist.copy_(row)
+        self.dt_hist = [float(v) for v in dt_hist]
+
+    def phase_probes(self):
+        """Measurement thunks re-running the step pieces on a copy of the
+        current state, no state mutation: {name: (thunk, per-step
+        scale)}; None until the first step has factored the LHS. The
+        inputs are cached per LHS key; the solve reads the live factor,
+        so a superseded factorization is never kept alive by the cache
+        (dedalus_tpu/core/timesteppers.py:387)."""
+        if self._lhs_aux is None or not self.dt_hist:
+            return None
+        cache = self._probe_cache
+        if cache is None or cache[0] != self._lhs_key:
+            solver = self.solver
+            ops, M, L = solver.ops, solver.M_mat, solver.L_mat
+            X = solver.X.clone()
+            t = float(solver.sim_time)
+            _, _, RHS = self._update(
+                X, t, None, (self.F_hist, self.MX_hist, self.LX_hist),
+                self._abc)
+
+            def eval_thunk():
+                return (solver.eval_F(X, t) * self._mask,
+                        ops.matvec_pair(M, L, X))
+
+            def solve_thunk():
+                return ops.solve(self._lhs_aux, RHS, mats=(M, L))
+
+            cache = self._probe_cache = (self._lhs_key, {
+                "rhs_eval": (eval_thunk, 1.0),
+                "matsolve": (solve_thunk, 1.0)})
+        return cache[1]
+
     def step(self, dt):
         solver = self.solver
         self._prepare(dt)
@@ -511,6 +590,37 @@ class RungeKuttaIMEX(BlockStepper):
         if key != self._lhs_key:
             self._lhs_key = key
             self._lhs_aux = self._factor(float(dt))
+
+    def phase_probes(self):
+        """Measurement thunks re-running one stage (evaluation, solve) on
+        a copy of the current state, scale = stages; None until the
+        first step has factored the LHS (dedalus_tpu/core/
+        timesteppers.py:740). The solve reads the live factor."""
+        if self._lhs_aux is None:
+            return None
+        cache = self._probe_cache
+        if cache is None or cache[0] != self._lhs_key:
+            solver = self.solver
+            ops, M, L = solver.ops, solver.M_mat, solver.L_mat
+            X = solver.X.clone()
+            t = float(solver.sim_time)
+            dt = float(self._lhs_key)
+            A, H = self.A.tolist(), self.H.tolist()
+            LX1 = ops.matvec(L, X)
+            F1 = solver.eval_F(X, t) * self._mask
+            RHS = ops.matvec(M, X) + dt * (A[1][0] * F1 - H[1][0] * LX1)
+
+            def eval_thunk():
+                return ops.matvec(L, X), solver.eval_F(X, t) * self._mask
+
+            def solve_thunk():
+                return ops.solve(self._lhs_aux[0], RHS, mats=(M, L))
+
+            scale = float(self.stages)
+            cache = self._probe_cache = (self._lhs_key, {
+                "rhs_eval": (eval_thunk, scale),
+                "matsolve": (solve_thunk, scale)})
+        return cache[1]
 
     def step(self, dt):
         solver = self.solver

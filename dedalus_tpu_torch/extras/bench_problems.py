@@ -157,7 +157,11 @@ def build_shear_solver(N, dtype=np.float64, device=None):
 
 
 def build_rb_solver(Nx, Nz, dtype, matsolver=None, device=None,
-                    timestepper="RK222"):
+                    timestepper="RK222", **solver_kw):
+    """2-D Rayleigh-Benard convection (the JAX package's
+    extras/bench_problems.py build_rb_solver). `solver_kw` goes to
+    build_solver (metrics, health, their cadences, ...). Returns
+    (solver, b)."""
     import dedalus_tpu_torch.public as d3
     Lx, Lz = 4.0, 1.0
     coords = d3.CartesianCoordinates("x", "z")
@@ -190,7 +194,7 @@ def build_rb_solver(Nx, Nz, dtype, matsolver=None, device=None,
     problem.add_equation("u(z=Lz) = 0")
     problem.add_equation("integ(p) = 0")
     solver = problem.build_solver(getattr(d3, timestepper),
-                                  matsolver=matsolver)
+                                  matsolver=matsolver, **solver_kw)
     b.fill_random("g", seed=42, distribution="normal", scale=1e-3)
     b["g"] += (Lz - z)
     return solver, b

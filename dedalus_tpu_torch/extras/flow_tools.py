@@ -226,6 +226,11 @@ class CFL:
         self.current_dt = initial_dt
         self.history = deque(maxlen=max(int(history_size), 1))
         self._last_freq_max = None
+        # the dt/frequency history is flight-recorder evidence
+        # (tools/health.py dt_history)
+        monitor = getattr(solver, "health", None)
+        if monitor is not None and hasattr(monitor, "attach_dt_source"):
+            monitor.attach_dt_source(self)
 
     def add_velocity(self, velocity):
         """Register a velocity vector field for CFL frequencies."""

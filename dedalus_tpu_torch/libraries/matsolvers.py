@@ -67,31 +67,70 @@ def pivot_floor(LU, size=None):
     return size * eps * amax_abs(LU, (-2, -1))[..., None]
 
 
-def count_floored_pivots(LU, floor=None):
-    """Per-group count (a device tensor, one entry per leading index) of
-    the pivots of packed LU factors below the pivot floor: the pivots
-    floor_pivots raises, the mark of a singular pencil. Computed on the
-    device; nothing waits on it."""
+# A pivot under the factor's floor is singular only where it is also
+# under COLUMN_ULPS * eps of its own column of U. The rounding residue of
+# a null direction sits at ~10-20 eps of its column (the Chebyshev^2
+# rectangle's corner modes: 11.5 eps in f32, 21.6 eps in f64), while the
+# smallest pivots of a nonsingular pencil whose columns are scaled by
+# dt (the Coriolis shell, condition ~1e9: 6.4e-9 of max|LU|, under the
+# f32 floor S eps32 max|LU| = 2.2e-4 max|LU|) sit at 117 eps32 of theirs.
+COLUMN_ULPS = 50
+
+
+def column_scale(LU, chunk_bytes=1 << 28):
+    """max |U[i, j]| over i <= j for each column j of packed LU factors
+    (..., S, S) -> (..., S), over chunks of the leading axis of at most
+    `chunk_bytes` so the triangle's copy stays small beside a large
+    store."""
+    if LU.dim() < 3:
+        return amax_abs(torch.triu(LU), -2)
+    per = max(1, chunk_bytes // max(1, LU[0].numel() * LU.element_size()))
+    return torch.cat([amax_abs(torch.triu(LU[i:i + per]), -2)
+                      for i in range(0, LU.shape[0], per)])
+
+
+def singular_pivots(LU, floor=None, scale=None):
+    """Mask (..., S) of the pivots of packed LU factors below the pivot
+    floor and below COLUMN_ULPS * eps of their column's scale (`scale`,
+    default column_scale(LU); False for the floor alone)."""
+    d = LU.diagonal(dim1=-2, dim2=-1).abs()
     floor = pivot_floor(LU) if floor is None else floor
-    return (LU.diagonal(dim1=-2, dim2=-1).abs() < floor).sum(dim=-1)
+    mask = d < floor
+    if scale is not False:
+        scale = column_scale(LU) if scale is None else scale
+        eps = torch.finfo(d.dtype).eps
+        mask = mask & (d < COLUMN_ULPS * eps * scale)
+    return mask
 
 
-def floor_pivots(LU, floor=None):
-    """LU factors with every pivot below S * eps * max|LU| of its group
-    raised to that floor (keeping its phase; an exact zero becomes +floor).
-    Such a pivot marks a structurally singular pencil (the annulus
-    example's m = 0 group: a pressure profile against the velocity taus),
-    where the plain factors amplify the right-hand side's roundoff by
-    1/pivot (~1e35) and the null-space component of the state grows each
-    step until it overflows. With the floor a solve returns a bounded
-    member of the solution set. The pivots of a nonsingular pencil are
-    far above the floor and stay bit for bit as they were. All on the
-    device: nothing waits on it."""
+def count_floored_pivots(LU, floor=None, scale=None):
+    """Per-group count (a device tensor, one entry per leading index) of
+    the pivots of packed LU factors that floor_pivots raises
+    (singular_pivots), the mark of a singular pencil. Computed on the
+    device; nothing waits on it."""
+    return singular_pivots(LU, floor, scale).sum(dim=-1)
+
+
+def floor_pivots(LU, floor=None, mask=None):
+    """LU factors with every singular pivot (singular_pivots: below
+    S * eps * max|LU| of its group and below COLUMN_ULPS * eps of its
+    column) raised to the floor S * eps * max|LU| (keeping its phase; an
+    exact zero becomes +floor). Such a pivot marks a structurally
+    singular pencil (the annulus example's m = 0 group: a pressure
+    profile against the velocity taus), where the plain factors amplify
+    the right-hand side's roundoff by 1/pivot (~1e35) and the null-space
+    component of the state grows each step until it overflows. With the
+    floor a solve returns a bounded member of the solution set. The
+    pivots of a nonsingular pencil stay bit for bit as they were, in
+    f32 too, where a column scaled by dt puts them under S eps32
+    max|LU|. `mask` is singular_pivots(LU, floor) where the caller has
+    it. All on the device: nothing waits on it."""
     diag = LU.diagonal(dim1=-2, dim2=-1)
     floor = pivot_floor(LU) if floor is None else floor
+    mask = singular_pivots(LU, floor) if mask is None else mask
     phase = torch.sgn(diag)
     phase = torch.where(phase == 0, torch.ones_like(phase), phase)
-    new = torch.where(diag.abs() < floor, floor * phase, diag)
+    new = torch.where(mask, floor * phase, diag)
     return torch.diagonal_scatter(LU, new, dim1=-2, dim2=-1)
 
 
@@ -126,8 +165,8 @@ class BatchedLUFactorized(CountsFlooredPivots):
     def factor_counted(matrices):
         LU, pivots, _ = torch.linalg.lu_factor_ex(matrices)
         floor = pivot_floor(LU)
-        count = count_floored_pivots(LU, floor)
-        return (floor_pivots(LU, floor), pivots), count
+        mask = singular_pivots(LU, floor)
+        return (floor_pivots(LU, floor, mask), pivots), mask.sum(dim=-1)
 
     @staticmethod
     def solve(aux, rhs):

@@ -55,7 +55,7 @@ from ..core.fusedstep import (WORK_DTYPE, as_columns, banded_substitution,
                               banded_substitution_transpose, resolve_fusion)
 from . import solvecomp
 from .matsolvers import (BatchedInverseRefined, get_solver, pivot_floor,
-                         amax_abs, count_floored_pivots,
+                         amax_abs, column_scale, count_floored_pivots,
                          lu_solve_transpose, refined_ladder,
                          transposed_refinement)
 from ..tools.array import torch_dtype, zeropad
@@ -221,7 +221,7 @@ def _capacitance_deficit(Cap):
         LU = torch.linalg.lu_factor_ex(C)[0]
         eps = torch.finfo(Cap.real.dtype).eps
         floor = eps ** 0.5 * amax_abs(LU, (-2, -1))[..., None]
-        return count_floored_pivots(LU, floor)
+        return count_floored_pivots(LU, floor, scale=False)
 
 
 class BandedMatrix:
@@ -502,21 +502,33 @@ class BandedOps(AdjointSolveOps):
 
     def _count_floored(self, interior):
         """Per-group count of the banded factor's pivots (its panels' and
-        the last block's) below n * eps * max|LU| of the group, the dense
-        factors' floor (matsolvers.pivot_floor) with n the banded system
-        size: a count only, the factors are not floored."""
-        _, panels, _, _, last = interior
+        the last block's) that the dense factors would floor
+        (matsolvers.singular_pivots): below n * eps * max|LU| of the
+        group, n the banded system size, and below COLUMN_ULPS * eps of
+        their column of U, which spans the block's own upper triangle and
+        the U12 fill of the two block rows above it. A count only: the
+        factors are not floored."""
+        _, panels, U12, _, last = interior
         with torch.no_grad():
             if panels is None:
                 floor = pivot_floor(last, self.n_pad)
                 return count_floored_pivots(last, floor)
+            q = self.q
             amax = torch.maximum(amax_abs(panels, (0, -2, -1)),
                                  amax_abs(last, (-2, -1)))
             eps = torch.finfo(last.real.dtype if last.is_complex()
                               else last.dtype).eps
             floor = (self.n_pad * eps * amax)[:, None]
-            return (count_floored_pivots(panels, floor).sum(dim=0)
-                    + count_floored_pivots(last, floor))
+            # (NB, G, q) column scales: block j's own triangle, then the
+            # fill U12[j-1][:, :q] and U12[j-2][:, q:]
+            col = torch.cat([column_scale(panels[..., :q, :]),
+                             column_scale(last)[None]])
+            fill = amax_abs(U12, -2)                      # (NB-1, G, 2q)
+            col[1:] = torch.maximum(col[1:], fill[..., :q])
+            col[2:] = torch.maximum(col[2:], fill[:-1, :, q:])
+            return (count_floored_pivots(panels[..., :q, :], floor,
+                                         col[:-1]).sum(dim=0)
+                    + count_floored_pivots(last, floor, col[-1]))
 
     def _precompose_subst(self, interior):
         """Precomposed matmul-substitution operators (FUSED_SOLVE). At

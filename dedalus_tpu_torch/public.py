@@ -31,6 +31,9 @@ from .core.solvers import (InitialValueSolver, LinearBoundaryValueSolver,
 from .core.evaluator import Evaluator
 from .core.ensemble import EnsembleSolver
 from .extras.flow_tools import CFL, GlobalFlowProperty, GlobalArrayReducer
+from .tools.exceptions import (CheckpointError, SilentCorruptionError,
+                               SolverHealthError)
+from .tools.health import HealthMonitor
 
 # lowercase operator aliases (reference: core/operators.py aliases)
 dot = DotProduct

@@ -690,3 +690,32 @@ def test_profile_step_needs_a_card():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         profile_steps("rb", (8, 32), 1)
+
+
+@pytest.mark.cuda
+def test_snapshot_survives_replayed_block_on_card(tmp_path):
+    """On the card step_many replays a recorded CUDA graph that writes
+    the state and the histories into static buffers: a snapshot and an
+    async checkpoint taken before the block still hold the old state."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    from dedalus_tpu_torch.extras.bench_problems import build_rb_solver
+    from dedalus_tpu_torch.tools import dcheckpoint as tdc
+    from dedalus_tpu_torch.tools import resilience as tres
+    solver, _ = build_rb_solver(64, 16, np.float64, matsolver="banded",
+                                device="cuda", timestepper="SBDF2",
+                                metrics=False, health=False)
+    for _ in range(3):
+        solver.step(1e-3)
+    solver.step_many(4, 1e-3)           # records the graph
+    before = solver.X.clone()
+    snap = tres.capture_snapshot(solver)
+    ck = tdc.ShardedCheckpointer(tmp_path, async_write=True)
+    loop = tres.ResilientLoop(solver, dt=1e-3, install_signal_handlers=False)
+    ck.save(*loop._sharded_state())
+    solver.step_many(8, 1e-3)           # replays into the static buffers
+    assert not torch.equal(solver.X, before)
+    assert torch.equal(snap.X, before)
+    assert ck.close() == []
+    got = tdc.restore_latest(tmp_path)["arrays"]["X"]
+    assert np.array_equal(got, before.cpu().numpy())

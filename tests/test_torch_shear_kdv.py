@@ -177,10 +177,35 @@ def test_dictionary_handler_schedule_matches_jax():
         assert rel_err(outputs[1][name], np.asarray(outputs[0][name])) <= RTOL
 
 
-def test_file_handler_names_its_slice():
-    ts, _ = build_kdv_solver(64, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        ts.evaluator.add_file_handler("snapshots", iter=10)
+def test_file_handler_names_its_slice(tmp_path, monkeypatch):
+    """add_file_handler writes HDF5 sets on a KdV 64 run (10 steps at
+    iter=5: writes 1, 2 and 3 of one set, at iterations 1, 5 and 10, u in
+    coefficient layout equal to the solver's field at the last), and
+    without h5py it raises the ImportError naming h5py."""
+    import builtins
+    h5py = pytest.importorskip("h5py")
+    ts, dt = build_kdv_solver(64, device="cpu")
+    u = ts.state[0]
+    handler = ts.evaluator.add_file_handler(tmp_path / "snapshots", iter=5)
+    handler.add_task(u, layout="c", name="u")
+    for _ in range(10):
+        ts.step(dt)
+    files = sorted((tmp_path / "snapshots").glob("snapshots_s*.h5"))
+    assert [f.name for f in files] == ["snapshots_s1.h5"]
+    with h5py.File(files[0], "r") as f:
+        assert list(np.asarray(f["scales/write_number"])) == [1, 2, 3]
+        assert list(np.asarray(f["scales/iteration"])) == [1, 5, 10]
+        assert np.array_equal(np.asarray(f["tasks/u"])[-1],
+                              np.asarray(u["c"]))
+    real_import = builtins.__import__
+
+    def no_h5py(name, *args, **kw):
+        if name == "h5py" or name.startswith("h5py."):
+            raise ImportError("No module named 'h5py'")
+        return real_import(name, *args, **kw)
+    monkeypatch.setattr(builtins, "__import__", no_h5py)
+    with pytest.raises(ImportError, match="h5py"):
+        ts.evaluator.add_file_handler(tmp_path / "more", iter=10)
 
 
 def test_operator_constants_upload_once():

@@ -23,6 +23,9 @@ on the CPU: the cases of tests/test_two_coupled.py, with its bounds.
     at the same bounds. The sizes are cut to keep the file near 35 s on
     one core: the theta-NCC shell from 8x40x24 to 8x40x16, the Coriolis
     shell from 8x40x16 to 8x24x8.
+  * The Coriolis shell in f32, dense, within 1e-2 of max|u| of the f64
+    state and of the JAX package's f32 run, with the f64 factor's count
+    of floored pivots (the f32 pivot floor's repair).
 """
 
 import numpy as np
@@ -230,6 +233,41 @@ def test_shell_coriolis_ivp_banded_matches_dense():
     assert np.isfinite(sol).all()
     assert np.abs(sol - ref).max() < 1e-10 * max(np.abs(ref).max(), 1.0)
     assert np.abs(sol - jsol).max() <= 1e-12 * np.abs(jsol).max()
+
+
+def test_shell_coriolis_f32_dense_matches_f64():
+    """The Coriolis shell in f32, dense, at 8x24x8: its pencils (condition
+    ~1e9) have legitimate pivots at 6.4e-9 of max|LU|, under the old f32
+    floor S eps32 max|LU| (2.2e-4 max|LU|), which raised 2199 of them and
+    left the state 4.5 max|u| off the f64 one. The floor now also needs a
+    pivot under COLUMN_ULPS eps of its column (libraries/matsolvers.py):
+    the f32 factor floors as many pivots as the f64 factor (none), the
+    state lands within 1e-2 max|u| of the port's f64 state (measured
+    3.7e-3; the JAX package's dense f32 run is 2.7e-3 off it) and within
+    1e-2 max|u| of the JAX package's dense f32 run (measured 4.3e-3:
+    two f32 factorizations of these pencils, each ~3e-3 from f64)."""
+    s64, ref = shell_coriolis(td3, np.float64, "dense")
+    s32, sol = shell_coriolis(td3, np.float32, "dense")
+    _, jsol = shell_coriolis(jd3, np.float32, "dense")
+    scale = np.abs(ref).max()
+    assert np.isfinite(sol).all()
+    assert np.abs(sol - ref).max() <= 1e-2 * scale
+    assert np.abs(sol - jsol).max() <= 1e-2 * scale
+    assert s32.floored_pivots.tolist() == s64.floored_pivots.tolist()
+
+
+def test_shell_coriolis_f32_banded_pivot_count():
+    """The banded factor's count of floored pivots at f32 takes the same
+    column test: the f32 Coriolis shell's banded factor counts what its
+    f64 factor counts (none), where the old f32 threshold reported
+    482-566 per group. (The banded f32 state itself diverges in both
+    packages at this size, ROADMAP queue 3.)"""
+    counts = {}
+    for dtype in (np.float64, np.float32):
+        solver, _ = shell_coriolis(td3, dtype, "banded")
+        assert isinstance(solver.ops, BandedOps), solver._banded_reason
+        counts[dtype] = solver.floored_pivots.tolist()
+    assert counts[np.float32] == counts[np.float64]
 
 
 def test_bench_builder_matches_the_test():
